@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (htscodecs_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--blocks B] [--quick]
+
+Needs one CUDA device, ``nvcc`` and a host C compiler; no network.
+What it does, in order (any failure exits non-zero):
+
+1. prints the device and builds the host C library and the CUDA kernel
+   library from the sources in this checkout;
+2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc) against
+   its plain PyTorch version on the card — integer codecs, so the
+   tolerance is 0 — over ragged batch sizes, block lengths with every
+   tail, four alphabet buckets, both orders and 10/12/mixed table
+   precision;
+3. drives the main path at full width through the entry points a user
+   calls: ``batch.compress_blocks`` then ``batch.uncompress_blocks`` on
+   B = 4096 blocks of 64 KiB of 4-symbol quality data at order 1, the
+   same at order 0, and a wide-alphabet batch; every block must
+   round-trip, a spread sample of streams must be byte-identical to
+   the host coder's, and each kernel's launch counter must have risen;
+4. profiles one more pass of the order-1 main path (host seconds by
+   function), then, at the shapes the main path gave each kernel,
+   holds it against its plain version once more and times it (CUDA
+   events, warm, median of 5) beside its roofline bound, its plain
+   version (one run) and, for sf_fetch, ``torch.gather``.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device available", file=sys.stderr)
+    sys.exit(2)
+
+from htscodecs_tpu_torch import cuda_build, native  # noqa: E402
+from htscodecs_tpu_torch.models import batch, rans4x16  # noqa: E402
+from htscodecs_tpu_torch.ops import convert, rans_v2, rans_vmem  # noqa: E402
+from htscodecs_tpu_torch.utils import testdata  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12        # non-tensor-core rate; the integer ALU
+#                               work of these kernels is held against it
+T0 = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
+    """Median device time of fn() in milliseconds (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return statistics.median(ts)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels vs plain versions
+
+def same_words(w1, w2, counts) -> bool:
+    cap = w1.shape[1]
+    live = torch.arange(cap, device=w1.device)[None, :] < counts[:, None]
+    return bool(((w1 == w2) | ~live).all())
+
+
+def check_case(blocks, sv, order, label, garbage=False) -> None:
+    B, N = blocks.shape
+    alpha, packed, _A = testdata.synth_tables(blocks, sv, order)
+    tables = convert.tables_from_reference(alpha, packed, sv, DEV)
+    bt = torch.from_numpy(blocks).to(DEV)
+    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
+
+    sf_k = rans_vmem.sf_fetch(tbl, qidx)
+    sf_p = rans_vmem._sf_fetch_plain(tbl, qidx)
+    if not torch.equal(sf_k, sf_p):
+        fail(f"sf_fetch != plain at {label}")
+
+    st_k, wd_k, cn_k = rans_vmem.rans16_enc(sf_k, tables.shift, K, geom, order)
+    st_p, wd_p, cn_p = rans_vmem._rans16_enc_plain(
+        sf_k, tables.shift, K, geom, order)
+    torch.cuda.synchronize()
+    if not (torch.equal(st_k, st_p) and torch.equal(cn_k, cn_p)
+            and same_words(wd_k, wd_p, cn_k)):
+        fail(f"rans16_enc != plain at {label}")
+
+    W = max(int(cn_k.max()), 1)
+    words = wd_k[:, :W].contiguous()
+    variants = [("", st_k, cn_k)]
+    if garbage:
+        # a truncated stream (reads bounded by the block's own count)
+        # and arbitrary states with bit 31 set: kernel and plain
+        # version must still agree bit for bit
+        g = torch.Generator(device="cpu").manual_seed(B * 7919 + N)
+        rnd = torch.randint(-2**31, 2**31 - 1, (B, 4), generator=g,
+                            dtype=torch.int64).to(torch.int32).to(DEV)
+        variants += [(" truncated", st_k, cn_k // 2), (" garbage", rnd, cn_k)]
+    for tag, st, cn in variants:
+        out_k = rans_vmem.rans16_dec(st, words, cn, tables, N, order)
+        out_p = rans_vmem._rans16_dec_plain(st, words, cn, tables, N, order)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            fail(f"rans16_dec != plain at {label}{tag}")
+        if not tag and not torch.equal(out_k, bt):
+            fail(f"rans16_dec did not return the input at {label}")
+
+
+def phase_kernels(quick: bool) -> int:
+    rng = np.random.default_rng(2024)
+    Bs = (1, 5, 130, 512)
+    Ns = (33, 511, 512, 514, 4096)
+    nsyms = (3, 14, 40, 90)            # -> alphabet buckets 4, 16, 48, 96
+    if quick:
+        Bs, Ns, nsyms = (5, 130), (33, 514), (3, 40)
+    n = 0
+    for B in Bs:
+        for N in Ns:
+            for nsym in nsyms:
+                blocks = testdata.synth_wide(B, N, nsym, seed=B * 100003 + N * 13 + nsym)
+                for order in (0, 1):
+                    for mode in ("10", "12", "mixed"):
+                        sv = (rng.choice([10, 12], size=B).astype(np.int32)
+                              if mode == "mixed" else np.full(B, int(mode), np.int32))
+                        label = f"B={B} N={N} nsym={nsym} order={order} shift={mode}"
+                        check_case(blocks, sv, order, label,
+                                   garbage=(N == 514))
+                        n += 1
+    return n
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+
+def run_main_path(name, blocks, order, sample):
+    """compress_blocks -> uncompress_blocks with the defaults; returns
+    the launch counts of the run and prints wall seconds and MB/s."""
+    B, N = blocks.shape
+    mb = B * N / 1e6
+    rans_vmem.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = batch.compress_blocks(blocks, order=order)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = batch.uncompress_blocks(streams)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(rans_vmem.LAUNCHES)
+
+    csize = sum(len(s) for s in streams)
+    log(f"main path {name}: B={B} N={N} order={order} "
+        f"compress {t1 - t0:.3f} s ({mb / (t1 - t0):.1f} MB/s) "
+        f"uncompress {t2 - t1:.3f} s ({mb / (t2 - t1):.1f} MB/s) "
+        f"ratio {csize / (B * N):.4f} launches {launches}")
+    for b in range(B):
+        if outs[b] != blocks[b].tobytes():
+            fail(f"{name}: block {b} did not round-trip")
+    cat = sum(1 for s in streams if s[0] & rans4x16.X_CAT)
+    if cat:
+        fail(f"{name}: {cat} streams fell back to CAT framing")
+    for b in np.linspace(0, B - 1, min(sample, B)).astype(int):
+        if streams[b] != rans4x16.compress(blocks[b], order):
+            fail(f"{name}: stream {b} differs from the host coder's")
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"{name}: kernel {k} was not launched on the main path")
+    log(f"main path {name}: {B} blocks round-trip, "
+        f"{min(sample, B)} sampled streams byte-identical to the host coder")
+    return launches, streams
+
+
+def profile_main_path(blocks, order) -> None:
+    """One more pass of the main path under cProfile: cumulative host
+    seconds of the port's own functions, the breakdown of the wall time.
+    Kernels run asynchronously, so their device time shows up where the
+    host first waits for them (the copy back in streams_to_reference /
+    _dec_batch)."""
+    import cProfile
+    import pstats
+    for name, fn, arg in (("compress_blocks", batch.compress_blocks, blocks),
+                          ("uncompress_blocks", batch.uncompress_blocks, None)):
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        if arg is None:
+            prof.runcall(fn, streams)
+        else:
+            streams = prof.runcall(fn, arg, order)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = [(ct, nc, f"{Path(file).name}:{func}")
+                for (file, _ln, func), (_cc, nc, _tt, ct, _callers)
+                in pstats.Stats(prof).stats.items()
+                if "htscodecs_tpu_torch" in file and ct >= 0.01 * wall]
+        rows.sort(reverse=True)
+        log(f"profile {name} order={order}: wall {wall:.3f} s under cProfile; "
+            "cumulative seconds by function:")
+        for ct, nc, label in rows[:14]:
+            print(f"    {ct:8.3f} s  {nc:6d} calls  {label}", flush=True)
+
+
+def max_abs_diff(a, b, live=None) -> int:
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    if live is not None:
+        d = d * live
+    return int(d.max())
+
+
+def kernel_times(blocks, order, launches):
+    """At the shapes the main path gave each kernel: hold the kernel
+    against its plain version once more, time both (and torch.gather
+    beside sf_fetch) and compute the roofline bound from this run's
+    inputs.  Returns the entries of the ``kernels`` line."""
+    B, N = blocks.shape
+    res = batch._pmap(native.build_tables_o1_dense if order
+                      else native.build_tables_o0, list(blocks))
+    if order:
+        alpha, packed, A = rans_v2.densify_builds((r[1], r[2]) for r in res)
+        sv = np.array([r[3] for r in res], np.int32)
+    else:
+        alpha, packed, A = rans_v2.densify_group_o0(
+            np.stack([r[2] for r in res]), np.stack([r[1] for r in res]))
+        sv = np.full(B, 12, np.int32)
+    tables = convert.tables_from_reference(alpha, packed, sv, DEV)
+    bt = torch.from_numpy(blocks).to(DEV)
+    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
+    nq = B * 4 * K
+
+    def once(fn):
+        return cuda_ms(fn, reps=1, warm=0)
+
+    # ---- sf_fetch ----
+    sf = rans_vmem.sf_fetch(tbl, qidx)
+    err_fetch = max_abs_diff(sf, rans_vmem._sf_fetch_plain(tbl, qidx))
+    ms_fetch = cuda_ms(lambda: rans_vmem.sf_fetch(tbl, qidx))
+    pl_fetch = cuda_ms(lambda: rans_vmem._sf_fetch_plain(tbl, qidx))
+    idx64 = qidx.to(torch.int64)
+    ms_gather = cuda_ms(lambda: torch.gather(tbl, 1, idx64))
+    del idx64
+    fetch_bytes = 8 * nq + tbl.numel() * 4
+    fetch_ops = 3 * nq
+
+    # ---- rans16_enc ----
+    st, wd, cn = rans_vmem.rans16_enc(sf, tables.shift, K, geom, order)
+    ms_enc = cuda_ms(lambda: rans_vmem.rans16_enc(
+        sf, tables.shift, K, geom, order))
+    plain = {}
+    pl_enc = once(lambda: plain.update(enc=rans_vmem._rans16_enc_plain(
+        sf, tables.shift, K, geom, order)))
+    st_p, wd_p, cn_p = plain.pop("enc")
+    live = torch.arange(wd.shape[1], device=DEV)[None, :] < cn[:, None]
+    err_enc = max(max_abs_diff(st, st_p), max_abs_diff(cn, cn_p),
+                  max_abs_diff(wd, wd_p, live))
+    del st_p, wd_p, cn_p, live
+    nwords = int(cn.sum())
+    enc_bytes = 4 * nq + 2 * nwords + B * (4 + 16 + 4)
+    enc_ops = 32 * nq                  # ~20 of them the 32-bit divide
+
+    # ---- rans16_dec ----
+    del sf, qidx
+    W = max(int(cn.max()), 1)
+    words = wd[:, :W].contiguous()
+    del wd
+    out = rans_vmem.rans16_dec(st, words, cn, tables, N, order)
+    ms_dec = cuda_ms(lambda: rans_vmem.rans16_dec(
+        st, words, cn, tables, N, order))
+    pl_dec = once(lambda: plain.update(dec=rans_vmem._rans16_dec_plain(
+        st, words, cn, tables, N, order)))
+    err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
+    dec_bytes = (2 * nwords + tables.bases.numel() * 2 + B * A
+                 + B * (16 + 4 + 4) + B * N)
+    dec_ops = (12 + 3 * math.ceil(math.log2(A + 1))) * nq
+
+    def entry(name, src, replaces, ms, plain_ms, err, nbytes, ops, library_ms):
+        if err != 0:
+            fail(f"{name} != plain at the main path's shape "
+                 f"(max abs err {err})")
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / FP32_OPS_PER_S * 1e3
+        return {"name": name, "route": "cuda",
+                "source": f"htscodecs_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": library_ms,
+                "shape": f"B={B} N={N} A={A} order={order}"}
+
+    return [
+        entry("rans16_dec", "rans16_dec.cu",
+              "htscodecs_tpu/ops/rans_vmem.py:126", ms_dec, pl_dec, err_dec,
+              dec_bytes, dec_ops, None),
+        entry("sf_fetch", "sf_fetch.cu",
+              "htscodecs_tpu/ops/rans_vmem.py:498", ms_fetch, pl_fetch,
+              err_fetch, fetch_bytes, fetch_ops, ms_gather),
+        entry("rans16_enc", "rans16_enc.cu",
+              "htscodecs_tpu/ops/rans_vmem.py:545", ms_enc, pl_enc, err_enc,
+              enc_bytes, enc_ops, None),
+    ]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--blocks", type=int, default=4096,
+                    help="blocks of 64 KiB in the main path's batches")
+    ap.add_argument("--quick", action="store_true",
+                    help="a thin slice of the kernel comparison grid")
+    args = ap.parse_args()
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = smi.splitlines()[0] if smi else f"{kind}, power limit unknown"
+    log(f"device: {kind} x{torch.cuda.device_count()} | {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    prebuilt = sorted(p.name for p in cuda_build.BUILD_DIR.glob("lib*.so"))
+    if prebuilt:
+        log(f"note: libraries found in {cuda_build.BUILD_DIR.name}/ are "
+            f"reused when their source hash matches: {prebuilt}")
+    if not native.available():
+        fail("host C library did not build")
+    log(f"host C library built in {native.build_seconds:.1f} s")
+    cuda_build.get_lib()
+    log(f"CUDA kernel library built in {cuda_build.build_seconds:.1f} s")
+    for line in cuda_build.build_log.splitlines():
+        if "registers" in line or "error" in line or "warning" in line:
+            print("    " + line.strip())
+
+    t = time.perf_counter()
+    rans_vmem.reset_launches()
+    ncases = phase_kernels(args.quick)
+    log(f"kernels == plain versions (tolerance 0) on {ncases} cases in "
+        f"{time.perf_counter() - t:.1f} s")
+    print(json.dumps({"kernels_vs_plain": [
+        {"name": k, "launches": v, "ok": True}
+        for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
+
+    # ---- the main path, full width ----
+    B, N = args.blocks, 65536
+    t = time.perf_counter()
+    q4 = testdata.synth_quality(B, N, seed=42)
+    log(f"generated {B} x {N} quality bytes in {time.perf_counter() - t:.1f} s")
+    launches1, _ = run_main_path("synth4 order 1", q4, 1, 256)
+    run_main_path("synth4 order 0", q4, 0, 256)
+    wide = testdata.synth_wide(max(B // 4, 1), N, 40, seed=9)
+    run_main_path("wide41 order 1", wide, 1, 256)
+    del wide
+
+    profile_main_path(q4, 1)
+    entries = kernel_times(q4, 1, launches1)
+    del q4
+    for e in entries:
+        log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
+            f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
+            f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms)")
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,325 @@
+"""Batched block codec API (rANS 4x16, order 0 and 1).
+
+Counterpart of ``htscodecs_tpu/models/batch.py`` for the plain orders.
+Compresses/decompresses many independent CRAM blocks at once: the
+entropy payload work of a large enough group of equal-length blocks
+goes to the batched CUDA engine (ops/rans_vmem.py through the batch
+entries of ops/rans_v2.py; dense alphabets A <= 96), everything else to
+the native host coder.  Streams are byte-identical to
+``rans4x16.compress`` / the C reference in every path.
+
+Batching rules: blocks group by (length, order[, table precision]) —
+the kernels are launched per shape.  Frequency tables are built and
+parsed on the host (native C over a thread pool) and shipped to the
+device as dense per-block tables.
+
+Transform-flagged orders (PACK / RLE / STRIPE / NOSZ) are not batched
+yet: they go to the host ``rans4x16.compress`` / ``uncompress`` block
+by block, byte-exact.
+
+Every entry point takes ``device`` and defaults to ``"cuda"``.  With no
+card that default raises; ``device="cpu"`` runs the engine's plain
+PyTorch versions (what the CPU tests do).  Nothing falls back from a
+failed kernel to the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from . import rans4x16
+from .. import native
+from ..ops import rans_v2
+from ..utils import varint
+
+# Below this many blocks in a shape group, the host path wins (device
+# dispatch latency + staging dominate tiny batches).
+DEVICE_MIN_GROUP = 16
+# "auto" also requires this many payload bytes in a group before the
+# device path engages (export HTSCODECS_TORCH_DEVICE_MIN_BYTES to
+# retune).
+DEVICE_MIN_BYTES = int(os.environ.get(
+    "HTSCODECS_TORCH_DEVICE_MIN_BYTES", 4 << 20))
+
+# Host table construction is native C via ctypes (GIL released), so a
+# thread pool scales it across cores.
+_POOL = ThreadPoolExecutor(max_workers=min(16, (os.cpu_count() or 4)))
+
+_TRANSFORM_FLAGS = (rans4x16.X_PACK | rans4x16.X_RLE | rans4x16.X_NOSZ
+                    | rans4x16.X_STRIPE)
+
+
+def _pmap(fn, items):
+    if len(items) <= 2:
+        return [fn(x) for x in items]
+    return list(_POOL.map(fn, items))
+
+
+def _as_u8(b) -> np.ndarray:
+    if isinstance(b, np.ndarray):
+        return b.astype(np.uint8, copy=False)
+    return np.frombuffer(bytes(b), dtype=np.uint8)
+
+
+def _small_group(count: int, nbytes: int, engine: str) -> bool:
+    """True when "auto" keeps a shape group on the host."""
+    return engine != "device" and (count < DEVICE_MIN_GROUP
+                                   or count * nbytes < DEVICE_MIN_BYTES)
+
+
+def compress_blocks(blocks, order: int, engine: str = "auto",
+                    device="cuda") -> list[bytes]:
+    """Compress a sequence of blocks with the rANS 4x16 codec.
+
+    Plain orders 0/1 batch onto the device; any other reference order
+    bit-field (PACK/RLE/NOSZ, STRIPE containers) is encoded by the host
+    coder block by block.  Streams are byte-identical to
+    ``rans4x16.compress`` in every path.
+
+    engine: "auto" | "device" | "host".
+    """
+    dev = rans_v2.check_device(device)
+    arrs = [_as_u8(b) for b in blocks]
+    out: list[bytes | None] = [None] * len(arrs)
+
+    plain_order = order in (0, 1)
+    groups: dict[int, list[int]] = defaultdict(list)
+    for i, a in enumerate(arrs):
+        if plain_order and engine != "host" and len(a) >= 32:
+            groups[len(a)].append(i)
+        else:
+            out[i] = rans4x16.compress(a, order)
+
+    for n, idxs in groups.items():
+        if _small_group(len(idxs), n, engine):
+            for i in idxs:
+                out[i] = rans4x16.compress(arrs[i], order)
+            continue
+        batch = np.stack([arrs[i] for i in idxs])
+        bodies = (_bodies_o1(batch, dev) if order == 1
+                  else _bodies_o0(batch, dev))
+        for k, i in enumerate(idxs):
+            out[i] = _frame(order, n, bodies[k], batch[k])
+
+    return out  # type: ignore[return-value]
+
+
+def _frame(order_byte: int, n: int, body: bytes, data: np.ndarray) -> bytes:
+    """Wrapper framing incl. the CAT fallback (compressed >= input)."""
+    head = bytearray([order_byte])
+    varint.put_uint(head, n)
+    if len(body) >= n:
+        head[0] = (head[0] & ~3 & 0xFF) | rans4x16.X_CAT
+        return bytes(head) + data.tobytes()
+    return bytes(head) + body
+
+
+def _join_bodies(hdrs, states, words, counts) -> list[bytes]:
+    """header + four state flushes + the block's words, per block."""
+    st = states.astype("<u4", copy=False)
+    wd = words.astype("<u2", copy=False)
+    return [hdrs[b] + st[b].tobytes() + wd[b, :counts[b]].tobytes()
+            for b in range(len(hdrs))]
+
+
+def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
+    """Entropy bodies (freq header + payload, no wrapper framing) for
+    a batch of equal-length blocks, order 0."""
+    B, N = batch.shape
+    if not native.available():
+        return [rans4x16._compress_o0(batch[b]) for b in range(B)]
+    res = _pmap(native.build_tables_o0, list(batch))
+    if any(r is None for r in res):
+        return [rans4x16._compress_o0(batch[b]) for b in range(B)]
+    hdrs = [r[0] for r in res]
+    starts = np.stack([r[1] for r in res])
+    freqs = np.stack([r[2] for r in res])
+    dense = rans_v2.densify_group_o0(freqs, starts)
+    if dense is None:
+        # wide alphabet: the native scalar coder takes it
+        return _pmap(rans4x16._compress_o0, list(batch))
+    alpha, packed, _ = dense
+    states, words, counts = rans_v2.enc_o0_batch(batch, alpha, packed,
+                                                 device=dev)
+    return _join_bodies(hdrs, states, words, counts)
+
+
+def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
+    B, N = batch.shape
+    if N < 8 or not native.available():
+        return [rans4x16._compress_o1(batch[b]) for b in range(B)]
+    res = _pmap(native.build_tables_o1_dense, list(batch))
+    if any(r is None for r in res):
+        # wide alphabet (A > 96) somewhere: such data is rare (random
+        # literals usually CAT out); thread the host coder
+        return _pmap(rans4x16._compress_o1, list(batch))
+    hdrs = [r[0] for r in res]
+    # mixed 10/12-bit batches need no grouping: the shift is per block
+    shifts = np.array([r[3] for r in res], np.int32)
+    alpha, packed, _ = rans_v2.densify_builds((r[1], r[2]) for r in res)
+    states, words, counts = rans_v2.enc_o1_batch(batch, alpha, packed,
+                                                 shifts, device=dev)
+    return _join_bodies(hdrs, states, words, counts)
+
+
+# ---------------------------------------------------------------------
+# decode
+
+def _peel_wrapper(s: bytes, out_size):
+    """Parse a plain or CAT rans4x16 wrapper down to its entropy
+    payload (the order byte carries no transform flag here).
+
+    Mirrors rans4x16._uncompress_into (reference
+    rANS_static4x16pr.c:1435-1584) but DEFERS the entropy decode so
+    payloads from many blocks batch together.  Returns
+      ("cat", data np.uint8)               — finished output
+      ("entropy", order, body, out size)   — to be decoded
+    or None for anything this path cannot handle (caller falls back).
+    """
+    end = len(s)
+    order = s[0]
+    do_cat = order & rans4x16.X_CAT
+    order &= 1
+    osz, pos = varint.get_uint(s, 1, end)
+    if out_size is not None and osz > out_size:
+        return None
+    if end - pos == 0:
+        return ("cat", np.zeros(0, np.uint8))
+    if do_cat:
+        if osz > end - pos:
+            return None
+        return ("cat", np.frombuffer(s[pos:pos + osz], np.uint8))
+    return ("entropy", order, s[pos:], osz)
+
+
+def uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
+                      device="cuda") -> list[bytes]:
+    """Decompress a sequence of rANS 4x16 streams.
+
+    Plain and CAT streams are peeled host-side and their entropy
+    payloads batch onto the device; transform-flagged streams
+    (PACK/RLE/NOSZ and STRIPE containers) are decoded by the host
+    coder."""
+    dev = rans_v2.check_device(device)
+    streams = [bytes(s) for s in streams]
+    out: list[bytes | None] = [None] * len(streams)
+    if any(not s for s in streams):
+        raise ValueError("corrupt rans4x16 stream")
+
+    use_batch = engine != "host" and native.available()
+
+    jobs: list[tuple] = []            # (jid, order, body, out size)
+    owners: list[int] = []            # jid -> stream index
+    for i, s in enumerate(streams):
+        osize = out_sizes[i] if out_sizes is not None else None
+        p = None
+        if use_batch and not s[0] & _TRANSFORM_FLAGS:
+            p = _peel_wrapper(s, osize)
+        if p is None:
+            out[i] = rans4x16.uncompress(s, osize)
+        elif p[0] == "cat":
+            out[i] = p[1].tobytes()
+        else:
+            _k, order, body, osz = p
+            jobs.append((len(jobs), order, body, osz))
+            owners.append(i)
+
+    results = _decode_entropy_jobs(jobs, engine, dev) if jobs else {}
+
+    for jid, i in enumerate(owners):
+        r = results.get(jid)
+        if r is None:
+            out[i] = rans4x16.uncompress(
+                streams[i], out_sizes[i] if out_sizes is not None else None)
+        else:
+            out[i] = r.tobytes()
+    return out  # type: ignore[return-value]
+
+
+def _host_decode(order: int, s: bytes, osz: int):
+    if order:
+        return rans4x16._uncompress_o1(memoryview(s), 0, len(s), osz)
+    return rans4x16._uncompress_o0(memoryview(s), 0, len(s), osz)
+
+
+def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
+    """Decode a list of (jid, order, body, out_sz) rans4x16 entropy
+    payloads, batching same-shape groups onto the device.  Returns
+    {jid: np.uint8 array} (missing jid = parse failure)."""
+    results: dict[int, np.ndarray] = {}
+    groups: dict[tuple, list] = defaultdict(list)
+    for jid, order, s, osz in jobs:
+        if osz == 0:
+            results[jid] = np.zeros(0, np.uint8)
+            continue
+        if order == 1:
+            r = native.parse_tables_o1_dense(s)
+            if r is not None:
+                off, alpha, packed, shift = r
+                if len(s) - off >= 16:
+                    groups[(1, osz, shift)].append(
+                        (jid, s, off, alpha, packed))
+            else:
+                # wide alphabet (A > 96): the native scalar decoder
+                rr = _host_decode(1, s, osz)
+                if rr is not None:
+                    results[jid] = rr
+        else:
+            r = native.parse_tables_o0(s)
+            if r is None:
+                continue
+            off, ssym, sfreq, sbase = r
+            if len(s) - off >= 16:
+                groups[(0, osz)].append((jid, s, off, ssym, sfreq, sbase))
+
+    for key, items in groups.items():
+        order, osz = key[0], key[1]
+        if _small_group(len(items), osz, engine):
+            for it in items:
+                r = _host_decode(order, it[1], osz)
+                if r is not None:
+                    results[it[0]] = r
+            continue
+        B = len(items)
+        nws = np.array([(len(s) - off - 16) // 2 for _, s, off, *_ in items],
+                       np.int32)
+        states = np.zeros((B, 4), np.uint32)
+        words = np.zeros((B, max(int(nws.max()), 1)), "<u2")
+        for k, (_, s, off, *_t) in enumerate(items):
+            states[k] = np.frombuffer(s[off:off + 16], "<u4")
+            words[k, :nws[k]] = np.frombuffer(
+                s[off + 16: off + 16 + 2 * nws[k]], "<u2")
+        if order == 1:
+            shift = key[2]
+            alpha, packed, _ = rans_v2.densify_builds(
+                (t[3], t[4]) for t in items)
+            dec = rans_v2.dec_o1_batch(states, words, osz, alpha, packed,
+                                       shift, device=dev, counts=nws)
+        else:
+            # per-slot LUTs -> per-symbol tables: sbase[m] = m - start
+            frs = np.zeros((B, 256), np.uint32)
+            sts = np.zeros((B, 256), np.uint32)
+            tot = items[0][4].shape[0]
+            slot = np.arange(tot, dtype=np.uint32)
+            for k, t in enumerate(items):
+                sym = t[3].astype(np.int64)
+                frs[k, sym] = t[4]
+                sts[k, sym] = slot - t[5]
+            dense = rans_v2.densify_group_o0(frs, sts)
+            if dense is None:
+                for it in items:
+                    rr = _host_decode(0, it[1], osz)
+                    if rr is not None:
+                        results[it[0]] = rr
+                continue
+            alpha, packed, _ = dense
+            dec = rans_v2.dec_o0_batch(states, words, osz, alpha, packed,
+                                       device=dev, counts=nws)
+        for k, it in enumerate(items):
+            results[it[0]] = dec[k]
+
+    return results

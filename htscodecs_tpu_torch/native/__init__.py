@@ -1,0 +1,306 @@
+"""Native host kernels: build-on-demand ctypes bindings.
+
+Compiles ``hostkernels.c`` with the system compiler at first use into
+the package's ``_build/`` directory (keyed by content hash, so a stale
+library is never loaded) and exposes numpy-friendly wrappers for the
+functions the batched rANS 4x16 path calls.  Without a compiler
+``available()`` is False and the callers use the pure-Python oracle
+engines.
+
+This is the port's own copy of the host runtime: the library name and
+the build directory differ from the JAX package's, and nothing is
+shared between the two at run time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+_HERE = Path(__file__).resolve().parent
+_SRC = _HERE / "hostkernels.c"
+BUILD_DIR = _HERE.parent / "_build"
+
+_lib = None
+_lib_lock = threading.Lock()
+build_seconds = 0.0     # wall time of the build, when this process built
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i64 = ctypes.c_int64
+_i32 = ctypes.c_int32
+
+
+def _build() -> ctypes.CDLL | None:
+    global build_seconds
+    if not _SRC.exists():
+        return None
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"libhtshost_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # per-process tmp name: two processes racing the first build
+        # each compile privately, then atomically publish via replace
+        tmp = BUILD_DIR / f".host_{tag}.{os.getpid()}.so"
+        t0 = time.perf_counter()
+        for cc in ("gcc", "cc", "clang"):
+            try:
+                r = subprocess.run(
+                    [cc, "-O3", "-march=native", "-shared", "-fPIC",
+                     "-o", str(tmp), str(_SRC), "-lm"],
+                    capture_output=True, timeout=300,
+                )
+            except (OSError, subprocess.TimeoutExpired):
+                continue
+            if r.returncode == 0:
+                tmp.replace(so)
+                build_seconds = time.perf_counter() - t0
+                break
+        else:
+            return None
+    try:
+        return ctypes.CDLL(str(so))
+    except OSError:
+        return None
+
+
+def _sig(fn, res, args):
+    fn.restype = res
+    fn.argtypes = args
+
+
+def get_lib():
+    global _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                lib = _build()
+                if lib is not None:
+                    _declare(lib)
+                _lib = lib if lib is not None else False
+    return _lib or None
+
+
+def _declare(lib) -> None:
+    for nm in ("r16_enc_o0", "r16_enc_o1", "r16_dec_o0", "r16_dec_o1"):
+        _sig(getattr(lib, nm), _i64, [_u8p, _i64, _u8p, _i64])
+    _sig(lib.r16_build_tables_o0, _i64,
+         [_u8p, _i64, _u8p, _i64, _u32p, _u32p])
+    _sig(lib.r16_parse_tables_o0, _i64, [_u8p, _i64, _u8p, _u16p, _u16p])
+    _sig(lib.r16_build_tables_o1_dense, _i64,
+         [_u8p, _i64, _u8p, _i64, _u8p, _i32p, _i32, _i32p, _i32p])
+    _sig(lib.r16_parse_tables_o1_dense, _i64,
+         [_u8p, _i64, _u8p, _i32p, _i32, _i32p, _i32p])
+    _sig(lib.r16_serialize_o1_dense_batch, _i64,
+         [_u8p, _i32p, _u16p, _i32p, _i32, _i32, _u8p, _i64, _i64p])
+    _sig(lib.r16_serialize_o0_batch, _i64,
+         [_u16p, _i32, _u8p, _i64, _i64p])
+    _sig(lib.r16_compress_wrapped, _i64, [_u8p, _i64, _i32, _u8p, _i64])
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+def _u8(arr) -> tuple:
+    a = np.ascontiguousarray(arr, dtype=np.uint8)
+    return a, a.ctypes.data_as(_u8p)
+
+
+def _coder(fn_name: str, data, cap: int, trim: bool):
+    a, ap = _u8(data)
+    out = np.empty(cap, dtype=np.uint8)
+    r = getattr(get_lib(), fn_name)(ap, len(a), out.ctypes.data_as(_u8p), cap)
+    if r < 0:
+        return None
+    return out[:r].tobytes() if trim else out
+
+
+def enc_o0(data: np.ndarray) -> bytes | None:
+    """Full order-0 block (freq header + payload)."""
+    return _coder("r16_enc_o0", data, int(1.1 * len(data) + 4096), True)
+
+
+def enc_o1(data: np.ndarray) -> bytes | None:
+    return _coder("r16_enc_o1", data,
+                  int(1.1 * len(data) + 257 * 257 * 3 + 4096), True)
+
+
+def dec_o0(blob, out_sz: int) -> np.ndarray | None:
+    return _coder("r16_dec_o0", np.frombuffer(bytes(blob), np.uint8),
+                  out_sz, False)
+
+
+def dec_o1(blob, out_sz: int) -> np.ndarray | None:
+    return _coder("r16_dec_o1", np.frombuffer(bytes(blob), np.uint8),
+                  out_sz, False)
+
+
+def build_tables_o0(data: np.ndarray):
+    """Returns (header bytes, starts (256,) u32, freqs (256,) u32)."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    hdr = np.empty(257 * 3 + 16, dtype=np.uint8)
+    st = np.empty(256, dtype=np.uint32)
+    fr = np.empty(256, dtype=np.uint32)
+    hl = lib.r16_build_tables_o0(
+        ap, len(a), hdr.ctypes.data_as(_u8p), len(hdr),
+        st.ctypes.data_as(_u32p), fr.ctypes.data_as(_u32p))
+    if hl < 0:
+        return None
+    return hdr[:hl].tobytes(), st, fr
+
+
+_TLBUF = threading.local()
+
+
+def _dense_bufs(max_a: int):
+    """Per-thread scratch for the dense table builders (a fresh 200 KB
+    np.empty per call costs more than the C work at small blocks)."""
+    b = getattr(_TLBUF, "bufs", None)
+    if b is None or b[3] < max_a:
+        # worst-case header: alphabet + per-row freq deltas; the C side
+        # compresses anything over 1000 B, but budget the raw size
+        hdr = np.empty(257 * 257 * 3 + 64, dtype=np.uint8)
+        alpha = np.empty(max_a, dtype=np.uint8)
+        packed = np.empty(max_a * max_a, dtype=np.int32)
+        b = (hdr, alpha, packed, max_a)
+        _TLBUF.bufs = b
+    return b
+
+
+def build_tables_o1_dense(data: np.ndarray, max_a: int = 96):
+    """Dense order-1 table build for the batched engines.
+
+    Returns (header bytes, alpha (a,) u8, packed (a,a) i32, shift) or
+    None (error / alphabet wider than max_a -> caller falls back)."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    hdr, alpha, packed, _ = _dense_bufs(max_a)
+    na = _i32(0)
+    sh = _i32(0)
+    hl = lib.r16_build_tables_o1_dense(
+        ap, len(a), hdr.ctypes.data_as(_u8p), len(hdr),
+        alpha.ctypes.data_as(_u8p), packed.ctypes.data_as(_i32p),
+        max_a, ctypes.byref(na), ctypes.byref(sh))
+    if hl < 0:
+        return None
+    n = na.value
+    return (hdr[:hl].tobytes(), alpha[:n].copy(),
+            packed[:n * n].reshape(n, n).copy(), int(sh.value))
+
+
+def parse_tables_o1_dense(blob, max_a: int = 96):
+    """Dense order-1 table parse for the batched decoder.
+
+    Returns (payload offset, alpha (a,) u8, packed (a,a) i32, shift)
+    or None."""
+    lib = get_lib()
+    a, ap = _u8(np.frombuffer(bytes(blob), dtype=np.uint8))
+    _hdr, alpha, packed, _ = _dense_bufs(max_a)
+    na = _i32(0)
+    sh = _i32(0)
+    off = lib.r16_parse_tables_o1_dense(
+        ap, len(a), alpha.ctypes.data_as(_u8p),
+        packed.ctypes.data_as(_i32p), max_a,
+        ctypes.byref(na), ctypes.byref(sh))
+    if off < 0:
+        return None
+    n = na.value
+    return (int(off), alpha[:n].copy(),
+            packed[:n * n].reshape(n, n).copy(), int(sh.value))
+
+
+def parse_tables_o0(blob):
+    """Returns (header length, ssym u8[4096], sfreq u16, sbase u16)."""
+    lib = get_lib()
+    a, ap = _u8(np.frombuffer(bytes(blob), dtype=np.uint8))
+    ssym = np.empty(4096, dtype=np.uint8)
+    sfreq = np.empty(4096, dtype=np.uint16)
+    sbase = np.empty(4096, dtype=np.uint16)
+    hl = lib.r16_parse_tables_o0(
+        ap, len(a), ssym.ctypes.data_as(_u8p),
+        sfreq.ctypes.data_as(_u16p), sbase.ctypes.data_as(_u16p))
+    if hl < 0:
+        return None
+    return int(hl), ssym, sfreq, sbase
+
+
+def compress_wrapped(data: np.ndarray, order: int):
+    """Full non-STRIPE transform-wrapper encode (pack/RLE/framing/CAT)
+    in one native call; byte-identical to models/rans4x16.compress.
+    Returns stream bytes or None (caller keeps the Python path)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a, ap = _u8(data)
+    n = len(a)
+    cap = 3 * n + 2048 + 257 * 257 * 3
+    buf = np.empty(cap, np.uint8)
+    r = lib.r16_compress_wrapped(ap, n, order, buf.ctypes.data_as(_u8p), cap)
+    if r < 0:
+        return None
+    return buf[:r].tobytes()
+
+
+def _split_arena(arena: np.ndarray, offs: np.ndarray) -> list[bytes]:
+    ab = arena.tobytes()
+    return [ab[offs[b]:offs[b + 1]] for b in range(len(offs) - 1)]
+
+
+def serialize_o1_dense_batch(alphas: np.ndarray, asz: np.ndarray,
+                             freqs: np.ndarray, shifts: np.ndarray):
+    """Batched order-1 header serialisation from pre-built tables.
+
+    alphas (B, Apad) u8, asz (B,) i32, freqs (B, Apad, Apad) u16
+    pre-shift normalised rows, shifts (B,) i32.  Returns a list of B
+    header byte strings (byte-identical to build_tables_o1_dense's)
+    or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    B, Apad = alphas.shape
+    al = np.ascontiguousarray(alphas, np.uint8)
+    az = np.ascontiguousarray(asz, np.int32)
+    fr = np.ascontiguousarray(freqs, np.uint16)
+    sh = np.ascontiguousarray(shifts, np.int32)
+    offs = np.empty(B + 1, np.int64)
+    cap = int(B) * (3 * Apad * Apad + 3 * Apad + 80) + 64
+    arena = np.empty(cap, np.uint8)
+    r = lib.r16_serialize_o1_dense_batch(
+        al.ctypes.data_as(_u8p), az.ctypes.data_as(_i32p),
+        fr.ctypes.data_as(_u16p), sh.ctypes.data_as(_i32p),
+        B, Apad, arena.ctypes.data_as(_u8p), cap, offs.ctypes.data_as(_i64p))
+    if r < 0:
+        return None
+    return _split_arena(arena, offs)
+
+
+def serialize_o0_batch(freqs: np.ndarray):
+    """Batched order-0 header serialisation.  freqs (B, 256) u16
+    pre-shift normalised counts.  Returns list of B header byte
+    strings (byte-identical to build_tables_o0's) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    B = freqs.shape[0]
+    fr = np.ascontiguousarray(freqs, np.uint16)
+    offs = np.empty(B + 1, np.int64)
+    cap = int(B) * (257 * 3 + 16) + 64
+    arena = np.empty(cap, np.uint8)
+    r = lib.r16_serialize_o0_batch(
+        fr.ctypes.data_as(_u16p), B, arena.ctypes.data_as(_u8p), cap,
+        offs.ctypes.data_as(_i64p))
+    if r < 0:
+        return None
+    return _split_arena(arena, offs)

@@ -1,0 +1,64 @@
+"""ops/convert.py: tables and streams between the JAX package's numpy
+layouts and the port's tensors, there and back."""
+
+import numpy as np
+import pytest
+import torch
+
+from htscodecs_tpu_torch.ops import convert, rans_v2
+from htscodecs_tpu_torch.utils import testdata
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("shift", [10, 12, "vector"])
+def test_tables_round_trip(order, shift):
+    B, N = 5, 400
+    blocks = testdata.synth_wide(B, N, 9, seed=3)
+    sv = np.array([10, 12, 10, 12, 12], np.int32) if shift == "vector" else shift
+    alpha, packed, A = testdata.synth_tables(blocks, sv, order)
+    t = convert.tables_from_reference(alpha, packed, sv, "cpu")
+    assert t.alpha.dtype == torch.uint8 and t.alpha.shape == (B, A)
+    assert t.bases.dtype == torch.int16
+    assert t.bases.shape == (B, A if order else 1, A + 1)
+    assert t.shift.dtype == torch.int32 and t.shift.shape == (B,)
+    al2, pk2, sh2 = convert.tables_to_reference(t, order)
+    np.testing.assert_array_equal(al2, alpha)
+    np.testing.assert_array_equal(sh2, convert.shift_vector(sv, B))
+    assert pk2.shape == packed.shape
+    live = (packed & rans_v2.PACK_MASK) > 0
+    np.testing.assert_array_equal(pk2[live], packed[live])
+    assert (pk2[~live] == 0).all()
+    # and the way back in gives the same kernel tables
+    t2 = convert.tables_from_reference(al2, pk2, sh2, "cpu")
+    assert torch.equal(t2.bases, t.bases)
+
+
+def test_streams_round_trip_keeps_high_bits():
+    rng = np.random.default_rng(8)
+    B, W = 7, 33
+    states = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint64).astype(np.uint32)
+    states[0] = [0x80000000, 0xFFFFFFFF, 0x00008000, 0x7FFFFFFF]
+    words = rng.integers(0, 2**16, size=(B, W)).astype(np.uint16)
+    words[0, :3] = [0x8000, 0xFFFF, 0x7FFF]
+    counts = rng.integers(1, W + 1, size=B).astype(np.int32)
+    counts[3] = W
+    st, wd, cn = convert.streams_from_reference(states, words, "cpu", counts)
+    assert st.dtype == torch.int32 and wd.dtype == torch.int16
+    assert cn.dtype == torch.int32
+    assert int(st[0, 0]) < 0 and int(wd[0, 0]) < 0     # the bits, reinterpreted
+    s2, w2, c2 = convert.streams_to_reference(st, wd, cn)
+    assert s2.dtype == np.uint32 and w2.dtype == np.uint16
+    np.testing.assert_array_equal(s2, states)
+    np.testing.assert_array_equal(c2, counts)
+    np.testing.assert_array_equal(w2, words[:, :counts.max()])
+
+
+def test_streams_default_counts_cover_the_row():
+    st, wd, cn = convert.streams_from_reference(
+        np.zeros((3, 4), np.uint32), np.zeros((3, 9), np.uint16), "cpu")
+    assert cn.tolist() == [9, 9, 9]
+
+
+def test_shift_vector_rejects_wrong_length():
+    with pytest.raises(ValueError):
+        convert.shift_vector(np.array([10, 12]), 3)

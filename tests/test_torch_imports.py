@@ -1,0 +1,93 @@
+"""The port stands alone: importing it loads neither jax nor the JAX
+package, its sources import neither, and its default device is the GPU
+(no silent CPU run)."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "htscodecs_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import htscodecs_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "htscodecs_tpu" or m.startswith("htscodecs_tpu.")]
+print("MODULES", len(names), "BAD", bad)
+"""
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|htscodecs_tpu)(?![\w])", re.M)
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("MODULES")][0]
+    assert line.endswith("BAD []"), line
+    assert int(line.split()[1]) >= 12, line
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_source_imports_neither(path):
+    assert not _FORBIDDEN.search(path.read_text()), path
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    assert _FORBIDDEN.search("import jax\n")
+    assert _FORBIDDEN.search("    from jax import lax\n")
+    assert _FORBIDDEN.search("from htscodecs_tpu.ops import rans_v2\n")
+    assert _FORBIDDEN.search("import htscodecs_tpu\n")
+    assert not _FORBIDDEN.search("from htscodecs_tpu_torch import native\n")
+    assert not _FORBIDDEN.search("# replaces htscodecs_tpu/ops/rans_vmem.py\n")
+
+
+@pytest.mark.parametrize("entry", ["compress", "uncompress", "enc", "dec"])
+def test_default_device_without_a_card_raises(entry):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from htscodecs_tpu_torch.models import batch
+    from htscodecs_tpu_torch.ops import rans_v2
+    blocks = [np.zeros(64, np.uint8)] * 20
+    z = np.zeros((2, 4), np.uint32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "compress":
+            batch.compress_blocks(blocks, 1, engine="device")
+        elif entry == "uncompress":
+            batch.uncompress_blocks([b"\x00\x01a"])
+        elif entry == "enc":
+            rans_v2.enc_o0_batch(np.zeros((2, 64), np.uint8),
+                                 np.zeros((2, 4), np.uint8),
+                                 np.zeros((2, 4), np.int32))
+        else:
+            rans_v2.dec_o0_batch(z, np.zeros((2, 8), np.uint16), 64,
+                                 np.zeros((2, 4), np.uint8),
+                                 np.zeros((2, 4), np.int32))
+
+
+def test_cuda_tensor_never_takes_the_plain_version():
+    """The wrappers pick the plain version by the tensor's device only."""
+    import inspect
+    from htscodecs_tpu_torch.ops import rans_vmem
+    for fn in (rans_vmem.rans16_dec, rans_vmem.sf_fetch,
+               rans_vmem.rans16_enc):
+        src = inspect.getsource(fn)
+        assert 'dev.type == "cpu"' in src
+        assert "try:" not in src and "except" not in src
