@@ -8,22 +8,30 @@ What it does, in order (any failure exits non-zero):
 
 1. prints the device and builds the host C library and the CUDA kernel
    library from the sources in this checkout;
-2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc) against
-   its plain PyTorch version on the card — integer codecs, so the
-   tolerance is 0 — over ragged batch sizes, block lengths with every
-   tail, four alphabet buckets, both orders and 10/12/mixed table
-   precision;
-3. drives the main path at full width through the entry points a user
-   calls: ``batch.compress_blocks`` then ``batch.uncompress_blocks`` on
-   B = 4096 blocks of 64 KiB of 4-symbol quality data at order 1, the
-   same at order 0, and a wide-alphabet batch; every block must
-   round-trip, a spread sample of streams must be byte-identical to
-   the host coder's, and each kernel's launch counter must have risen;
-4. profiles one more pass of the order-1 main path (host seconds by
+2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc,
+   rans16_enc_fused, rans8_enc, rans8_dec) against its plain PyTorch
+   version on the card — integer codecs, so the tolerance is 0 — over
+   ragged batch sizes, block lengths with every tail, four alphabet
+   buckets, both orders, 10/12/mixed table precision (4x16) and
+   truncated and garbage streams; rans16_enc_fused is also held against
+   the sf_fetch + rans16_enc pair;
+3. drives the main paths at full width through the entry points a user
+   calls, the launch counts set to 0 just before each and read just
+   after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
+   (rANS 4x16) on B = 4096 blocks of 64 KiB of 4-symbol quality data at
+   order 1, the same at order 0, and a wide-alphabet batch; then
+   ``batch.r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` (rANS
+   4x8) on the same three batches; then the 4x16 order-1 batch once
+   more under ``set_enc_variant(row_fetch="vmem")``.  Every block must
+   round-trip, a spread sample of streams must be byte-identical to the
+   host coder's, the "vmem" streams must equal the default variant's,
+   and exactly the kernels of each path must have been launched;
+4. profiles one more pass of each order-1 main path (host seconds by
    function), then, at the shapes the main path gave each kernel,
    holds it against its plain version once more and times it (CUDA
    events, warm, median of 5) beside its roofline bound, its plain
-   version (one run) and, for sf_fetch, ``torch.gather``.
+   version (one run) and, for sf_fetch, ``torch.gather``; and times the
+   two 4x16 encode variants whole, tensor preparation included.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -39,6 +47,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -48,8 +57,9 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from htscodecs_tpu_torch import cuda_build, native  # noqa: E402
-from htscodecs_tpu_torch.models import batch, rans4x16  # noqa: E402
-from htscodecs_tpu_torch.ops import convert, rans_v2, rans_vmem  # noqa: E402
+from htscodecs_tpu_torch.models import batch, rans4x8, rans4x16  # noqa: E402
+from htscodecs_tpu_torch.ops import (convert, rans8_vmem, rans_v2,  # noqa: E402
+                                     rans_vmem)
 from htscodecs_tpu_torch.utils import testdata  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -88,13 +98,28 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain versions
 
-def same_words(w1, w2, counts) -> bool:
+def same_live(w1, w2, counts) -> bool:
+    """Equality of the first counts[b] elements of each row."""
     cap = w1.shape[1]
     live = torch.arange(cap, device=w1.device)[None, :] < counts[:, None]
     return bool(((w1 == w2) | ~live).all())
 
 
+def same_streams(got, want) -> bool:
+    (st, wd, cn), (st2, wd2, cn2) = got, want
+    return (torch.equal(st, st2) and torch.equal(cn, cn2)
+            and same_live(wd, wd2, cn))
+
+
+def garbage_states(B, N):
+    """Arbitrary states, bit 31 set in half of them."""
+    g = torch.Generator(device="cpu").manual_seed(B * 7919 + N)
+    return torch.randint(-2**31, 2**31 - 1, (B, 4), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(DEV)
+
+
 def check_case(blocks, sv, order, label, garbage=False) -> None:
+    """The four rANS 4x16 kernels on one case."""
     B, N = blocks.shape
     alpha, packed, _A = testdata.synth_tables(blocks, sv, order)
     tables = convert.tables_from_reference(alpha, packed, sv, DEV)
@@ -106,14 +131,22 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
     if not torch.equal(sf_k, sf_p):
         fail(f"sf_fetch != plain at {label}")
 
-    st_k, wd_k, cn_k = rans_vmem.rans16_enc(sf_k, tables.shift, K, geom, order)
-    st_p, wd_p, cn_p = rans_vmem._rans16_enc_plain(
-        sf_k, tables.shift, K, geom, order)
+    enc_k = rans_vmem.rans16_enc(sf_k, tables.shift, K, geom, order)
+    enc_p = rans_vmem._rans16_enc_plain(sf_k, tables.shift, K, geom, order)
     torch.cuda.synchronize()
-    if not (torch.equal(st_k, st_p) and torch.equal(cn_k, cn_p)
-            and same_words(wd_k, wd_p, cn_k)):
+    if not same_streams(enc_k, enc_p):
         fail(f"rans16_enc != plain at {label}")
 
+    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
+    fus_k = rans_vmem.rans16_enc_fused(sym, ctx, tables, K, geom, order)
+    fus_p = rans_vmem._rans16_enc_fused_plain(sym, ctx, tables, K, geom, order)
+    torch.cuda.synchronize()
+    if not same_streams(fus_k, fus_p):
+        fail(f"rans16_enc_fused != plain at {label}")
+    if not same_streams(fus_k, enc_k):
+        fail(f"rans16_enc_fused != sf_fetch + rans16_enc at {label}")
+
+    st_k, wd_k, cn_k = enc_k
     W = max(int(cn_k.max()), 1)
     words = wd_k[:, :W].contiguous()
     variants = [("", st_k, cn_k)]
@@ -121,10 +154,8 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
         # a truncated stream (reads bounded by the block's own count)
         # and arbitrary states with bit 31 set: kernel and plain
         # version must still agree bit for bit
-        g = torch.Generator(device="cpu").manual_seed(B * 7919 + N)
-        rnd = torch.randint(-2**31, 2**31 - 1, (B, 4), generator=g,
-                            dtype=torch.int64).to(torch.int32).to(DEV)
-        variants += [(" truncated", st_k, cn_k // 2), (" garbage", rnd, cn_k)]
+        variants += [(" truncated", st_k, cn_k // 2),
+                     (" garbage", garbage_states(B, N), cn_k)]
     for tag, st, cn in variants:
         out_k = rans_vmem.rans16_dec(st, words, cn, tables, N, order)
         out_p = rans_vmem._rans16_dec_plain(st, words, cn, tables, N, order)
@@ -135,10 +166,44 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
             fail(f"rans16_dec did not return the input at {label}")
 
 
+def check_case8(blocks, order, label, garbage=False) -> None:
+    """The two rANS 4x8 kernels on one case; tables from the native
+    4x8 table build (rows of 4095 slots)."""
+    B, N = blocks.shape
+    alpha, packed = testdata.r8_tables(blocks, order)
+    tables = convert.tables8_from_reference(alpha, packed, DEV)
+    bt = torch.from_numpy(blocks).to(DEV)
+    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
+    enc_k = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
+    enc_p = rans8_vmem._rans8_enc_plain(sym, ctx, tables, K, geom, order)
+    torch.cuda.synchronize()
+    if not same_streams(enc_k, enc_p):
+        fail(f"rans8_enc != plain at {label}")
+
+    st_k, by_k, cn_k = enc_k
+    W = max(int(cn_k.max()), 1)
+    stream = by_k[:, :W].contiguous()
+    variants = [("", st_k, cn_k)]
+    if garbage:
+        variants += [(" truncated", st_k, cn_k // 2),
+                     (" garbage", garbage_states(B, N), cn_k)]
+    for tag, st, cn in variants:
+        out_k = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order)
+        out_p = rans8_vmem._rans8_dec_plain(st, stream, cn, tables, N, order)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            fail(f"rans8_dec != plain at {label}{tag}")
+        if not tag and not torch.equal(out_k, bt):
+            fail(f"rans8_dec did not return the input at {label}")
+
+
 def phase_kernels(quick: bool) -> int:
+    """The comparison grid.  The plain versions are bound by the host's
+    launch rate (time ~ steps, whatever B), so the longest length runs
+    at one alphabet only."""
     rng = np.random.default_rng(2024)
     Bs = (1, 5, 130, 512)
-    Ns = (33, 511, 512, 514, 4096)
+    Ns = (33, 511, 512, 514, 4096)     # N & 3 = 1, 3, 0, 2, 0
     nsyms = (3, 14, 40, 90)            # -> alphabet buckets 4, 16, 48, 96
     if quick:
         Bs, Ns, nsyms = (5, 130), (33, 514), (3, 40)
@@ -146,6 +211,8 @@ def phase_kernels(quick: bool) -> int:
     for B in Bs:
         for N in Ns:
             for nsym in nsyms:
+                if N == 4096 and nsym != 40:
+                    continue
                 blocks = testdata.synth_wide(B, N, nsym, seed=B * 100003 + N * 13 + nsym)
                 for order in (0, 1):
                     for mode in ("10", "12", "mixed"):
@@ -155,24 +222,48 @@ def phase_kernels(quick: bool) -> int:
                         check_case(blocks, sv, order, label,
                                    garbage=(N == 514))
                         n += 1
+                    check_case8(blocks, order,
+                                f"4x8 B={B} N={N} nsym={nsym} order={order}",
+                                garbage=(N == 514))
+                    n += 1
     return n
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 
-def run_main_path(name, blocks, order, sample):
-    """compress_blocks -> uncompress_blocks with the defaults; returns
-    the launch counts of the run and prints wall seconds and MB/s."""
+class Codec(NamedTuple):
+    """The entry points of one codec's main path."""
+    name: str
+    compress: Callable
+    uncompress: Callable
+    host_compress: Callable
+    kernels: tuple          # the kernels its main path runs
+
+
+R4X16 = Codec("rans4x16", batch.compress_blocks, batch.uncompress_blocks,
+              rans4x16.compress, ("rans16_dec", "sf_fetch", "rans16_enc"))
+R4X16_VMEM = Codec("rans4x16 row_fetch=vmem", batch.compress_blocks,
+                   batch.uncompress_blocks, rans4x16.compress,
+                   ("rans16_dec", "rans16_enc_fused"))
+R4X8 = Codec("rans4x8", batch.r4x8_compress_blocks,
+             batch.r4x8_uncompress_blocks, rans4x8.compress,
+             ("rans8_enc", "rans8_dec"))
+
+
+def run_main_path(codec, name, blocks, order, sample):
+    """compress -> uncompress with the defaults; returns the launch
+    counts of the run and the streams, prints wall seconds and MB/s."""
     B, N = blocks.shape
     mb = B * N / 1e6
+    name = f"{codec.name} {name}"
     rans_vmem.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    streams = batch.compress_blocks(blocks, order=order)
+    streams = codec.compress(blocks, order=order)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    outs = batch.uncompress_blocks(streams)
+    outs = codec.uncompress(streams)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(rans_vmem.LAUNCHES)
@@ -185,21 +276,26 @@ def run_main_path(name, blocks, order, sample):
     for b in range(B):
         if outs[b] != blocks[b].tobytes():
             fail(f"{name}: block {b} did not round-trip")
-    cat = sum(1 for s in streams if s[0] & rans4x16.X_CAT)
-    if cat:
-        fail(f"{name}: {cat} streams fell back to CAT framing")
+    if codec is not R4X8:
+        cat = sum(1 for s in streams if s[0] & rans4x16.X_CAT)
+        if cat:
+            fail(f"{name}: {cat} streams fell back to CAT framing")
+    t = time.perf_counter()
     for b in np.linspace(0, B - 1, min(sample, B)).astype(int):
-        if streams[b] != rans4x16.compress(blocks[b], order):
+        if streams[b] != codec.host_compress(blocks[b], order):
             fail(f"{name}: stream {b} differs from the host coder's")
     for k, v in launches.items():
-        if v < 1:
+        if k in codec.kernels and v < 1:
             fail(f"{name}: kernel {k} was not launched on the main path")
-    log(f"main path {name}: {B} blocks round-trip, "
-        f"{min(sample, B)} sampled streams byte-identical to the host coder")
+        if k not in codec.kernels and v:
+            fail(f"{name}: kernel {k} is not of this path but was launched")
+    log(f"main path {name}: {B} blocks round-trip, {min(sample, B)} sampled "
+        f"streams byte-identical to the host coder "
+        f"({time.perf_counter() - t:.1f} s of host coding)")
     return launches, streams
 
 
-def profile_main_path(blocks, order) -> None:
+def profile_main_path(codec, blocks, order) -> None:
     """One more pass of the main path under cProfile: cumulative host
     seconds of the port's own functions, the breakdown of the wall time.
     Kernels run asynchronously, so their device time shows up where the
@@ -207,8 +303,8 @@ def profile_main_path(blocks, order) -> None:
     _dec_batch)."""
     import cProfile
     import pstats
-    for name, fn, arg in (("compress_blocks", batch.compress_blocks, blocks),
-                          ("uncompress_blocks", batch.uncompress_blocks, None)):
+    for fn, arg in ((codec.compress, blocks), (codec.uncompress, None)):
+        name = fn.__name__
         prof = cProfile.Profile()
         t0 = time.perf_counter()
         if arg is None:
@@ -235,11 +331,42 @@ def max_abs_diff(a, b, live=None) -> int:
     return int(d.max())
 
 
+def streams_err(got, want) -> int:
+    """Max abs difference of two encoders' (states, elements, counts),
+    the elements compared up to each block's count."""
+    (st, wd, cn), (st2, wd2, cn2) = got, want
+    live = torch.arange(wd.shape[1], device=DEV)[None, :] < cn[:, None]
+    return max(max_abs_diff(st, st2), max_abs_diff(cn, cn2),
+               max_abs_diff(wd, wd2, live))
+
+
+def once(fn):
+    return cuda_ms(fn, reps=1, warm=0)
+
+
+def entry(name, src, replaces, shape, launches, ms, plain_ms, err, nbytes,
+          ops, library_ms):
+    """One entry of the ``kernels`` line; the bound from the run's own
+    bytes and operations."""
+    if err != 0:
+        fail(f"{name} != plain at the main path's shape (max abs err {err})")
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / FP32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"htscodecs_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": library_ms, "shape": shape}
+
+
 def kernel_times(blocks, order, launches):
-    """At the shapes the main path gave each kernel: hold the kernel
-    against its plain version once more, time both (and torch.gather
-    beside sf_fetch) and compute the roofline bound from this run's
-    inputs.  Returns the entries of the ``kernels`` line."""
+    """The rANS 4x16 kernels at the shapes the main path gave them:
+    hold each against its plain version once more, time both (and
+    torch.gather beside sf_fetch) and compute the roofline bound from
+    this run's inputs.  Returns the entries of the ``kernels`` line and
+    the whole-encode times of the two variants."""
     B, N = blocks.shape
     res = batch._pmap(native.build_tables_o1_dense if order
                       else native.build_tables_o0, list(blocks))
@@ -252,13 +379,30 @@ def kernel_times(blocks, order, launches):
         sv = np.full(B, 12, np.int32)
     tables = convert.tables_from_reference(alpha, packed, sv, DEV)
     bt = torch.from_numpy(blocks).to(DEV)
-    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
-    nq = B * 4 * K
+    shape = f"B={B} N={N} A={A} order={order}"
+    plain = {}
 
-    def once(fn):
-        return cuda_ms(fn, reps=1, warm=0)
+    # ---- the two encode variants whole, tensor preparation included,
+    # in turns: pfv, vmem, vmem, pfv
+    variant_ms = {"pfv": [], "vmem": []}
+    for v in ("pfv", "vmem", "vmem", "pfv"):
+        variant_ms[v].append(cuda_ms(
+            lambda: rans_vmem.enc_batch(bt, tables, order,
+                                        prefetch=v == "pfv"), reps=3))
+
+    # ---- rans16_enc_fused ----
+    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
+    nq = B * 4 * K
+    fus = rans_vmem.rans16_enc_fused(sym, ctx, tables, K, geom, order)
+    ms_fus = cuda_ms(lambda: rans_vmem.rans16_enc_fused(
+        sym, ctx, tables, K, geom, order))
+    pl_fus = once(lambda: plain.update(fus=rans_vmem._rans16_enc_fused_plain(
+        sym, ctx, tables, K, geom, order)))
+    err_fus = streams_err(fus, plain.pop("fus"))
+    del sym, ctx
 
     # ---- sf_fetch ----
+    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
     sf = rans_vmem.sf_fetch(tbl, qidx)
     err_fetch = max_abs_diff(sf, rans_vmem._sf_fetch_plain(tbl, qidx))
     ms_fetch = cuda_ms(lambda: rans_vmem.sf_fetch(tbl, qidx))
@@ -270,23 +414,26 @@ def kernel_times(blocks, order, launches):
     fetch_ops = 3 * nq
 
     # ---- rans16_enc ----
-    st, wd, cn = rans_vmem.rans16_enc(sf, tables.shift, K, geom, order)
+    enc = rans_vmem.rans16_enc(sf, tables.shift, K, geom, order)
     ms_enc = cuda_ms(lambda: rans_vmem.rans16_enc(
         sf, tables.shift, K, geom, order))
-    plain = {}
     pl_enc = once(lambda: plain.update(enc=rans_vmem._rans16_enc_plain(
         sf, tables.shift, K, geom, order)))
-    st_p, wd_p, cn_p = plain.pop("enc")
-    live = torch.arange(wd.shape[1], device=DEV)[None, :] < cn[:, None]
-    err_enc = max(max_abs_diff(st, st_p), max_abs_diff(cn, cn_p),
-                  max_abs_diff(wd, wd_p, live))
-    del st_p, wd_p, cn_p, live
+    err_enc = streams_err(enc, plain.pop("enc"))
+    err_fus = max(err_fus, streams_err(fus, enc))
+    del fus
+    st, wd, cn = enc
     nwords = int(cn.sum())
     enc_bytes = 4 * nq + 2 * nwords + B * (4 + 16 + 4)
     enc_ops = 32 * nq                  # ~20 of them the 32-bit divide
+    # the fused encoder reads a symbol and (order 1) a context byte per
+    # symbol and the base rows; 4 more operations for the lookup
+    fus_bytes = ((2 if order else 1) * nq + tables.bases.numel() * 2
+                 + 2 * nwords + B * (4 + 16 + 4))
+    fus_ops = 36 * nq
 
     # ---- rans16_dec ----
-    del sf, qidx
+    del sf, qidx, enc
     W = max(int(cn.max()), 1)
     words = wd[:, :W].contiguous()
     del wd
@@ -300,31 +447,78 @@ def kernel_times(blocks, order, launches):
                  + B * (16 + 4 + 4) + B * N)
     dec_ops = (12 + 3 * math.ceil(math.log2(A + 1))) * nq
 
-    def entry(name, src, replaces, ms, plain_ms, err, nbytes, ops, library_ms):
-        if err != 0:
-            fail(f"{name} != plain at the main path's shape "
-                 f"(max abs err {err})")
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops / FP32_OPS_PER_S * 1e3
-        return {"name": name, "route": "cuda",
-                "source": f"htscodecs_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations",
-                "library_ms": library_ms,
-                "shape": f"B={B} N={N} A={A} order={order}"}
-
+    ref = "htscodecs_tpu/ops/rans_vmem.py"
+    variants = {k: statistics.median(v) for k, v in variant_ms.items()}
     return [
-        entry("rans16_dec", "rans16_dec.cu",
-              "htscodecs_tpu/ops/rans_vmem.py:126", ms_dec, pl_dec, err_dec,
-              dec_bytes, dec_ops, None),
-        entry("sf_fetch", "sf_fetch.cu",
-              "htscodecs_tpu/ops/rans_vmem.py:498", ms_fetch, pl_fetch,
-              err_fetch, fetch_bytes, fetch_ops, ms_gather),
-        entry("rans16_enc", "rans16_enc.cu",
-              "htscodecs_tpu/ops/rans_vmem.py:545", ms_enc, pl_enc, err_enc,
-              enc_bytes, enc_ops, None),
+        entry("rans16_dec", "rans16_dec.cu", f"{ref}:344", shape,
+              launches["rans4x16"], ms_dec, pl_dec, err_dec, dec_bytes,
+              dec_ops, None),
+        entry("sf_fetch", "sf_fetch.cu", f"{ref}:529", shape,
+              launches["rans4x16"], ms_fetch, pl_fetch, err_fetch,
+              fetch_bytes, fetch_ops, ms_gather),
+        entry("rans16_enc", "rans16_enc.cu", f"{ref}:831", shape,
+              launches["rans4x16"], ms_enc, pl_enc, err_enc, enc_bytes,
+              enc_ops, None),
+        entry("rans16_enc_fused", "rans16_enc_fused.cu", f"{ref}:855", shape,
+              launches["vmem"], ms_fus, pl_fus, err_fus, fus_bytes, fus_ops,
+              None),
+    ], variants
+
+
+def kernel_times8(blocks, order, launches):
+    """The same for the two rANS 4x8 kernels."""
+    B, N = blocks.shape
+    res = batch._pmap(lambda b: native.r8_build_tables_dense(b, order),
+                      list(blocks))
+    if order:
+        alpha, packed, A = rans_v2.densify_builds((r[1], r[2]) for r in res)
+    else:
+        alpha, packed = batch._r8_dense_o0(res)
+        A = alpha.shape[1]
+    tables = convert.tables8_from_reference(alpha, packed, DEV)
+    bt = torch.from_numpy(blocks).to(DEV)
+    shape = f"B={B} N={N} A={A} order={order}"
+    plain = {}
+
+    # ---- rans8_enc ----
+    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
+    nq = B * 4 * K
+    enc = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
+    ms_enc = cuda_ms(lambda: rans8_vmem.rans8_enc(
+        sym, ctx, tables, K, geom, order))
+    pl_enc = once(lambda: plain.update(enc=rans8_vmem._rans8_enc_plain(
+        sym, ctx, tables, K, geom, order)))
+    err_enc = streams_err(enc, plain.pop("enc"))
+    del sym, ctx
+    st, by, cn = enc
+    nbytes = int(cn.sum())
+    enc_bytes = ((2 if order else 1) * nq + tables.bases.numel() * 2
+                 + nbytes + B * (16 + 4))
+    enc_ops = 40 * nq      # the 4x16 step, the lookup, a second compare/shift
+
+    # ---- rans8_dec ----
+    del enc
+    W = max(int(cn.max()), 1)
+    stream = by[:, :W].contiguous()
+    del by
+    out = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order)
+    ms_dec = cuda_ms(lambda: rans8_vmem.rans8_dec(
+        st, stream, cn, tables, N, order))
+    pl_dec = once(lambda: plain.update(dec=rans8_vmem._rans8_dec_plain(
+        st, stream, cn, tables, N, order)))
+    err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
+    dec_bytes = (nbytes + tables.bases.numel() * 2 + B * A
+                 + B * (16 + 4) + B * N)
+    dec_ops = (16 + 3 * math.ceil(math.log2(A + 1))) * nq
+
+    ref = "htscodecs_tpu/ops/rans8_vmem.py"
+    return [
+        entry("rans8_dec", "rans8_dec.cu", f"{ref}:252", shape,
+              launches["rans4x8"], ms_dec, pl_dec, err_dec, dec_bytes,
+              dec_ops, None),
+        entry("rans8_enc", "rans8_enc.cu", f"{ref}:452", shape,
+              launches["rans4x8"], ms_enc, pl_enc, err_enc, enc_bytes,
+              enc_ops, None),
     ]
 
 
@@ -366,24 +560,49 @@ def main() -> None:
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
 
-    # ---- the main path, full width ----
+    # ---- the main paths, full width ----
     B, N = args.blocks, 65536
     t = time.perf_counter()
     q4 = testdata.synth_quality(B, N, seed=42)
-    log(f"generated {B} x {N} quality bytes in {time.perf_counter() - t:.1f} s")
-    launches1, _ = run_main_path("synth4 order 1", q4, 1, 256)
-    run_main_path("synth4 order 0", q4, 0, 256)
     wide = testdata.synth_wide(max(B // 4, 1), N, 40, seed=9)
-    run_main_path("wide41 order 1", wide, 1, 256)
+    log(f"generated {B} x {N} quality bytes and {len(wide)} x {N} wide "
+        f"bytes in {time.perf_counter() - t:.1f} s")
+    launches = {}
+    launches["rans4x16"], streams1 = run_main_path(
+        R4X16, "synth4 order 1", q4, 1, 256)
+    run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
+    run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
+
+    # rANS 4x8: its host coder is pure Python, so the sample is 16
+    launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
+    run_main_path(R4X8, "synth4 order 0", q4, 0, 16)
+    run_main_path(R4X8, "wide41 order 1", wide, 1, 16)
     del wide
 
-    profile_main_path(q4, 1)
-    entries = kernel_times(q4, 1, launches1)
+    # the 4x16 encode with the table lookup inside the kernel
+    if rans_v2.get_enc_variant()["row_fetch"] != "pfv":
+        fail("the default encode variant is not 'pfv'")
+    rans_v2.set_enc_variant(row_fetch="vmem")
+    launches["vmem"], streams_v = run_main_path(
+        R4X16_VMEM, "synth4 order 1", q4, 1, 16)
+    rans_v2.set_enc_variant(row_fetch="pfv")
+    if streams_v != streams1:
+        fail("row_fetch='vmem' streams differ from the default variant's")
+    log(f"row_fetch='vmem': all {len(streams_v)} streams byte-identical to "
+        "the default variant's")
+    del streams1, streams_v
+
+    profile_main_path(R4X16, q4, 1)
+    profile_main_path(R4X8, q4, 1)
+    entries, variants = kernel_times(q4, 1, launches)
+    entries += kernel_times8(q4, 1, launches)
     del q4
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
             f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms)")
+    log(f"4x16 encode whole (densify + inputs + kernels), ms: {variants}")
+    print(json.dumps({"enc_variant_ms": variants}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,14 +24,12 @@
 // Bound on this card: memory traffic (4 bytes per symbol in, the
 // emitted words out); one state per thread makes it latency-bound.
 //
-// Per step (rANS_word.h, L = 1<<15): emit = X >= ((L >> shift) << 16) * f;
-// word = X & 0xFFFF; X >>= 16 if emit; X = (X / f << shift) + X % f + start.
+// The step itself (rANS_word.h, L = 1<<15) and the reversal are in
+// rans_group.cuh, shared with rans16_enc_fused.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rans_group.cuh"
 
 #define RANS_L (1u << 15)
-#define THREADS 128
 
 template <int ORDER>
 __global__ void __launch_bounds__(THREADS)
@@ -53,51 +51,18 @@ rans16_enc_kernel(const int32_t* __restrict__ sf,
     const uint32_t xmult = (RANS_L >> sh) << 16;
     const int32_t* in = sf + bb * (size_t)K * 4;
     uint16_t* w = words + bb * (size_t)cap;
-    const unsigned wl = threadIdx.x & 31u;
-    const unsigned gsh = wl & ~3u;
+    const unsigned gsh = (threadIdx.x & 31u) & ~3u;
 
     uint32_t X = RANS_L;
     int n = 0;
-    for (int s = 0; s < K; ++s) {
-        // order 1: the first geom steps are the state-3 tail (lane 0
-        // alone); order 0: the first step skips the geom padded lanes
-        const bool ok = ORDER ? (s >= geom || j == 0) : (s > 0 || j >= geom);
-        const int32_t v = in[4 * s + j];
-        const uint32_t start = (uint32_t)v & 0xFFFu;
-        const uint32_t f = ((uint32_t)v >> 12) & 0x1FFFu;
-        const bool emit = ok && X >= xmult * f;
-        const unsigned g = (__ballot_sync(0xffffffffu, emit) >> gsh) & 0xFu;
-        if (emit) {
-            if (live) w[n + __popc(g & ((1u << j) - 1u))] = (uint16_t)X;
-            X >>= 16;
-        }
-        n += __popc(g);
-        if (ok) {
-            const uint32_t fs = f ? f : 1u;
-            const uint32_t qq = X / fs;
-            X = (qq << sh) + (X - qq * fs) + start;
-        }
-    }
+    for (int s = 0; s < K; ++s)
+        enc16_step(X, n, w, (uint32_t)in[4 * s + j],
+                   enc_active<ORDER>(s, j, geom), live, j, gsh, xmult, sh);
     if (live) {
         states[bb * 4 + (3 - j)] = X;
         if (j == 0) counts[bb] = n;
     }
-
-    // forward order = reverse of emission order: the warp reverses each
-    // of its 8 blocks' n words in place
-    __syncwarp();
-    const int b0 = (blockIdx.x * THREADS + (threadIdx.x & ~31u)) >> 2;
-    for (int gi = 0; gi < 8; ++gi) {
-        const int nb = __shfl_sync(0xffffffffu, n, gi * 4);
-        if (b0 + gi >= B) break;
-        uint16_t* row = words + (size_t)(b0 + gi) * cap;
-        for (int i = wl; i < (nb >> 1); i += 32) {
-            const uint16_t lo = row[i];
-            const uint16_t hi = row[nb - 1 - i];
-            row[i] = hi;
-            row[nb - 1 - i] = lo;
-        }
-    }
+    reverse_rows(words, cap, n, B);
 }
 
 // sf (B, 4K) i32 in processing order (step-major, lane-minor), shift

@@ -101,6 +101,12 @@ def _declare(lib) -> None:
                                     ctypes.c_longlong, _vp]
     lib.rans16_enc_launch.restype = _int
     lib.rans16_enc_launch.argtypes = [_vp] * 5 + [_int] * 5 + [_vp]
+    lib.rans16_enc_fused_launch.restype = _int
+    lib.rans16_enc_fused_launch.argtypes = [_vp] * 7 + [_int] * 6 + [_vp]
+    lib.rans8_enc_launch.restype = _int
+    lib.rans8_enc_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
+    lib.rans8_dec_launch.restype = _int
+    lib.rans8_dec_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
 
 
 def get_lib():

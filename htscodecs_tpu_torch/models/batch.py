@@ -1,4 +1,4 @@
-"""Batched block codec API (rANS 4x16, order 0 and 1).
+"""Batched block codec API (rANS 4x16 and rANS 4x8, order 0 and 1).
 
 Counterpart of ``htscodecs_tpu/models/batch.py`` for the plain orders.
 Compresses/decompresses many independent CRAM blocks at once: the
@@ -12,6 +12,11 @@ Batching rules: blocks group by (length, order[, table precision]) —
 the kernels are launched per shape.  Frequency tables are built and
 parsed on the host (native C over a thread pool) and shipped to the
 device as dense per-block tables.
+
+``r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` are the same
+layer for the CRAM 3.0 codec (rANS 4x8): tables from the native dense
+table build, payload scans in ``ops/rans8_vmem.py``, the pure-Python
+``rans4x8`` coder for everything the batched engine does not take.
 
 Transform-flagged orders (PACK / RLE / STRIPE / NOSZ) are not batched
 yet: they go to the host ``rans4x16.compress`` / ``uncompress`` block
@@ -31,9 +36,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import rans4x16
+from . import rans4x8, rans4x16
 from .. import native
-from ..ops import rans_v2
+from ..ops import rans8_v2, rans_v2
 from ..utils import varint
 
 # Below this many blocks in a shape group, the host path wins (device
@@ -323,3 +328,141 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
             results[it[0]] = dec[k]
 
     return results
+
+
+# ---------------------------------------------------------------------
+# rANS 4x8 (CRAM 3.0)
+
+def _r8_dense_o0(res):
+    """Order-0 (alphabet, packed) rows of a batch -> dense (alpha,
+    packed), padded like ``densify_builds``' order-1 rows."""
+    A = rans_v2._round_a(max(len(r[1]) for r in res))
+    alpha = np.zeros((len(res), A), np.uint8)
+    packed = np.zeros((len(res), A), np.int32)
+    for k, (_tab, al, pk) in enumerate(res):
+        alpha[k, :len(al)] = al
+        alpha[k, len(al):] = al[-1] if len(al) else 0
+        packed[k, :len(pk)] = pk
+    return alpha, packed
+
+
+def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
+                         device="cuda") -> list[bytes]:
+    """Compress a sequence of blocks with the rANS 4x8 codec (CRAM
+    3.0), batching the payload scans onto the device.  Streams are
+    byte-identical to ``rans4x8.compress`` in every path.
+
+    engine: "auto" | "device" | "host".
+    """
+    dev = rans_v2.check_device(device)
+    arrs = [_as_u8(b) for b in blocks]
+    out: list[bytes | None] = [None] * len(arrs)
+    groups: dict[int, list[int]] = defaultdict(list)
+    for i, a in enumerate(arrs):
+        if order in (0, 1) and engine != "host" and len(a) >= 8:
+            groups[len(a)].append(i)
+        else:
+            out[i] = rans4x8.compress(a, order)
+    for n, idxs in groups.items():
+        res = None
+        if not _small_group(len(idxs), n, engine) and native.available():
+            batch = np.stack([arrs[i] for i in idxs])
+            res = _pmap(lambda b: native.r8_build_tables_dense(b, order),
+                        list(batch))
+        if res is None or any(r is None for r in res):
+            # small group, no native library, or an alphabet wider than
+            # the dense tables take (A > 96) somewhere in the group
+            for i in idxs:
+                out[i] = rans4x8.compress(arrs[i], order)
+            continue
+        if order == 1:
+            alpha, packed, _ = rans_v2.densify_builds(
+                (r[1], r[2]) for r in res)
+            enc = rans8_v2.enc_o1_batch
+        else:
+            alpha, packed = _r8_dense_o0(res)
+            enc = rans8_v2.enc_o0_batch
+        states, wbytes, counts = enc(batch, alpha, packed, device=dev)
+        st = states.astype("<u4", copy=False)
+        for k, i in enumerate(idxs):
+            tab = res[k][0]
+            payload = st[k].tobytes() + wbytes[k, :counts[k]].tobytes()
+            head = bytearray([order])
+            head += (len(tab) + len(payload)).to_bytes(4, "little")
+            head += n.to_bytes(4, "little")
+            out[i] = bytes(head) + tab + payload
+    return out  # type: ignore[return-value]
+
+
+def _r8_parse_group(items, order: int):
+    """Tables, states and byte streams of one (order, out size) group
+    of 4x8 streams, or None when the group belongs on the host coder:
+    a table that does not parse, an alphabet wider than the dense
+    tables take, or a state below the coder's lower bound."""
+    offs, rows = [], []
+    for _i, s in items:
+        if order:
+            r = rans4x8.parse_tables_o1(s, want_sfb=False)
+            # keep only the block's dense sub-table: 4096 x two
+            # (256,256) arrays would be 2 GiB of host memory
+            d = None if r is None else rans_v2.extract_dense(r[2], r[3])
+            if d is None:
+                return None
+            rows.append(d)
+        else:
+            r = rans4x8.parse_tables_o0(s)
+            if r is None:
+                return None
+            rows.append((r[4], r[5]))
+        offs.append(r[0])
+    if order:
+        dense = rans_v2.densify_builds(rows)
+    else:
+        dense = rans_v2.densify_group_o0(np.stack([f for f, _b in rows]),
+                                         np.stack([b for _f, b in rows]))
+    if dense is None:
+        return None
+    alpha, packed, _ = dense
+    B = len(items)
+    nbs = np.array([len(s) - pos - 16 for (_i, s), pos in zip(items, offs)],
+                   np.int32)
+    states = np.zeros((B, 4), np.uint32)
+    stream = np.zeros((B, max(int(nbs.max()), 1)), np.uint8)
+    for k, ((_i, s), pos) in enumerate(zip(items, offs)):
+        states[k] = np.frombuffer(s[pos:pos + 16], "<u4")
+        stream[k, :nbs[k]] = np.frombuffer(s[pos + 16:], np.uint8)
+    if (states < rans8_v2.RANS8_L).any():
+        return None
+    return states, stream, nbs, alpha, packed
+
+
+def r4x8_uncompress_blocks(streams, engine: str = "auto",
+                           device="cuda") -> list[bytes]:
+    """Decompress a sequence of rANS 4x8 streams, batching the payload
+    scans of each (order, out size) group onto the device.  Short,
+    malformed or wide-alphabet streams go to ``rans4x8.uncompress``,
+    which raises ValueError on a corrupt stream."""
+    dev = rans_v2.check_device(device)
+    streams = [bytes(s) for s in streams]
+    out: list[bytes | None] = [None] * len(streams)
+    groups: dict[tuple, list] = defaultdict(list)
+    for i, s in enumerate(streams):
+        if len(s) < 9 or s[0] not in (0, 1) or engine == "host":
+            out[i] = rans4x8.uncompress(s)
+            continue
+        osz = int.from_bytes(s[5:9], "little")
+        groups[(s[0], osz)].append((i, s))
+    for (order, osz), items in groups.items():
+        parsed = None
+        if osz >= 4 and not _small_group(len(items), osz, engine):
+            parsed = _r8_parse_group(items, order)
+        if parsed is None:
+            for i, s in items:
+                out[i] = rans4x8.uncompress(s)
+            continue
+        states, stream, nbs, alpha, packed = parsed
+        dec = rans8_v2.dec_o1_batch if order else rans8_v2.dec_o0_batch
+        res = dec(states, stream, osz, alpha, packed, device=dev, counts=nbs)
+        for k, (i, _s) in enumerate(items):
+            out[i] = res[k].tobytes()
+    return out  # type: ignore[return-value]

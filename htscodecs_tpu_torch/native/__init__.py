@@ -3,7 +3,7 @@
 Compiles ``hostkernels.c`` with the system compiler at first use into
 the package's ``_build/`` directory (keyed by content hash, so a stale
 library is never loaded) and exposes numpy-friendly wrappers for the
-functions the batched rANS 4x16 path calls.  Without a compiler
+functions the batched rANS 4x16 and 4x8 paths call.  Without a compiler
 ``available()`` is False and the callers use the pure-Python oracle
 engines.
 
@@ -106,6 +106,9 @@ def _declare(lib) -> None:
     _sig(lib.r16_serialize_o0_batch, _i64,
          [_u16p, _i32, _u8p, _i64, _i64p])
     _sig(lib.r16_compress_wrapped, _i64, [_u8p, _i64, _i32, _u8p, _i64])
+    for nm in ("r8_build_tables_o0_dense", "r8_build_tables_o1_dense"):
+        _sig(getattr(lib, nm), _i64,
+             [_u8p, _i64, _u8p, _i64, _u8p, _i32p, _i32, _i32p])
 
 
 def available() -> bool:
@@ -198,6 +201,28 @@ def build_tables_o1_dense(data: np.ndarray, max_a: int = 96):
     n = na.value
     return (hdr[:hl].tobytes(), alpha[:n].copy(),
             packed[:n * n].reshape(n, n).copy(), int(sh.value))
+
+
+def r8_build_tables_dense(data: np.ndarray, order: int, max_a: int = 96):
+    """Dense rANS 4x8 table build (CRAM 3.0) for the batched engines.
+
+    Returns (serialised table bytes, alpha (a,) u8, packed i32 —
+    (a,) for order 0, (a,a) for order 1) or None."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    hdr, alpha, packed, _ = _dense_bufs(max_a)
+    na = _i32(0)
+    fn = (lib.r8_build_tables_o1_dense if order
+          else lib.r8_build_tables_o0_dense)
+    tl = fn(ap, len(a), hdr.ctypes.data_as(_u8p), len(hdr),
+            alpha.ctypes.data_as(_u8p), packed.ctypes.data_as(_i32p),
+            max_a, ctypes.byref(na))
+    if tl < 0:
+        return None
+    n = na.value
+    pk = (packed[:n * n].reshape(n, n).copy() if order
+          else packed[:n].copy())
+    return hdr[:tl].tobytes(), alpha[:n].copy(), pk
 
 
 def parse_tables_o1_dense(blob, max_a: int = 96):

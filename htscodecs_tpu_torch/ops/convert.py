@@ -17,6 +17,13 @@ or a ``(B,)`` vector.  The port's CUDA kernels read:
   mask, the kernels reinterpret the pointers as unsigned)
 - counts (B,) int32: words that belong to each block
 
+The rANS 4x8 engine (``ops/rans8_vmem.py``) reads the same ``Tables``
+with two differences: the successor column of ``bases`` holds each
+row's own total (4x8 rows normalise to 4095 slots), and ``shift`` is
+filled with 12, the codec's fixed precision.  Its stream is plain
+``(B, W) uint8`` (the bytes after the 16 state bytes), its counts are
+bytes per block.
+
 The tests feed both packages through these functions, so the same
 numpy arrays drive the JAX engines and the port.
 """
@@ -107,3 +114,53 @@ def streams_to_reference(states: torch.Tensor, words: torch.Tensor,
     wd = words[:, :cap].contiguous().cpu().numpy().view(np.uint16)
     st = states.contiguous().cpu().numpy().view(np.uint32)
     return st, wd, cn
+
+
+# ---------------------------------------------------------------------------
+# rANS 4x8
+
+def tables8_from_reference(alpha, packed, device) -> Tables:
+    """Reference numpy 4x8 tables (``native.r8_build_tables_dense`` or
+    ``rans_v2.densify_*`` output) -> ``Tables`` on ``device`` with
+    per-row totals in the successor column and shift 12."""
+    from .rans8_vmem import SHIFT, _b16_fill_rowtot
+    alpha = np.ascontiguousarray(alpha, dtype=np.uint8)
+    pk = _tensor(np.ascontiguousarray(packed, dtype=np.int32), device)
+    if pk.dim() == 2:                      # order 0: one row per block
+        pk = pk[:, None, :]
+    bases = _b16_fill_rowtot(pk).to(torch.int16).contiguous()
+    sv = torch.full((alpha.shape[0],), SHIFT, dtype=torch.int32,
+                    device=device)
+    return Tables(_tensor(alpha, device), bases, sv)
+
+
+def tables8_to_reference(tables: Tables, order: int):
+    """Inverse of tables8_from_reference: (alpha, packed); entries with
+    freq 0 come back as 0, as in tables_to_reference."""
+    alpha, packed, _shift = tables_to_reference(tables, order)
+    return alpha, packed
+
+
+def streams8_from_reference(states, stream, device, counts=None):
+    """(B,4) u32 states + (B,W) u8 stream [+ (B,) byte counts] -> the
+    port's (states int32, stream uint8, counts int32) tensors."""
+    st = np.ascontiguousarray(states, dtype=np.uint32).view(np.int32)
+    by = np.ascontiguousarray(stream, dtype=np.uint8)
+    B, W = by.shape
+    if counts is None:
+        cn = np.full((B,), W, np.int32)
+    else:
+        cn = np.ascontiguousarray(counts, dtype=np.int32)
+    return _tensor(st, device), _tensor(by, device), _tensor(cn, device)
+
+
+def streams8_to_reference(states: torch.Tensor, stream: torch.Tensor,
+                          counts: torch.Tensor):
+    """The 4x8 encoder's outputs -> (states (B,4) u32, bytes (B,cap')
+    u8, counts (B,) i32) numpy arrays; only the columns some block uses
+    are copied off the device (cap' = max count, at least 1)."""
+    cn = counts.cpu().numpy().astype(np.int32)
+    cap = max(int(cn.max()) if len(cn) else 0, 1)
+    by = stream[:, :cap].contiguous().cpu().numpy()
+    st = states.contiguous().cpu().numpy().view(np.uint32)
+    return st, by, cn

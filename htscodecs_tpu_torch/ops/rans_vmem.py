@@ -1,4 +1,4 @@
-"""The batched rANS 4x16 engine: three CUDA kernels and what surrounds
+"""The batched rANS 4x16 engine: four CUDA kernels and what surrounds
 them.
 
 Counterpart of ``htscodecs_tpu/ops/rans_vmem.py`` (the Pallas engine of
@@ -26,6 +26,15 @@ for CUDA tensors it launches the kernel or raises.
     emission sequence, so words are ranked by ballot + popcount and
     reversed in place at the end: no segment capacity, no retry, no
     sort; the divide is the card's exact integer divide.
+``rans16_enc_fused``  csrc/rans16_enc_fused.cu
+    replaces ``_build_enc_kernel`` (the encode with the table fetch
+    inside the kernel, ``_enc_vmem(prefetch=False)``) and its stitch
+    sort.  Reads one symbol byte and one context byte per symbol and
+    looks ``(start, freq)`` up in the block's own base rows, so the
+    4-byte index and the 4-byte ``sf`` value per symbol of the
+    ``sf_fetch`` + ``rans16_enc`` pair never touch device memory.
+    Same step, ranking and reversal as ``rans16_enc``; its outputs
+    equal that pair's bit for bit.
 
 Tensor conventions are those of ``ops/convert.py``: states int32 and
 words int16 hold the bits of the u32 / u16 values.
@@ -43,8 +52,10 @@ RANS_L = 1 << 15
 _M32 = 0xFFFFFFFF
 
 # launches per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else
-LAUNCHES = {"rans16_dec": 0, "sf_fetch": 0, "rans16_enc": 0}
+# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py counts
+# in the same table)
+LAUNCHES = {"rans16_dec": 0, "sf_fetch": 0, "rans16_enc": 0,
+            "rans16_enc_fused": 0, "rans8_enc": 0, "rans8_dec": 0}
 
 
 def reset_launches() -> None:
@@ -139,11 +150,7 @@ def _rans16_dec_plain(states, words, counts, tables: Tables, N: int,
             rows = rows_all[:, 0][:, None, :].expand(B, 4, A + 1)
         act = act[None, :]
         m = X & mask
-        c = (rows[:, :, :A] <= m[:, :, None]).sum(dim=2)
-        sym = (c - 1).clamp(min=0)
-        bs = torch.where(c > 0, rows.gather(2, sym[:, :, None])[:, :, 0],
-                         torch.zeros_like(c))
-        f = rows.gather(2, (sym + 1)[:, :, None])[:, :, 0] - bs
+        sym, bs, f = _slot_lookup(rows, m)
         Xn = (f * (X >> sh) + m - bs) & _M32
         need = (Xn < RANS_L) & act
         ni = need.to(i64)
@@ -164,6 +171,20 @@ def _rans16_dec_plain(states, words, counts, tables: Tables, N: int,
             n_here = min(4, N - 4 * s)
             out[:, 4 * s:4 * s + n_here] = byte[:, :n_here]
     return out
+
+
+def _slot_lookup(rows, m):
+    """Slot -> symbol over monotone base rows.  rows (B,4,A+1) int64, m
+    (B,4): the symbol is the last of the first A entries that is <= m
+    (entry 0 with base 0 when there is none), freq = its successor's
+    base minus its own.  Returns (sym, base, freq)."""
+    A = rows.shape[2] - 1
+    c = (rows[:, :, :A] <= m[:, :, None]).sum(dim=2)
+    sym = (c - 1).clamp(min=0)
+    bs = torch.where(c > 0, rows.gather(2, sym[:, :, None])[:, :, 0],
+                     torch.zeros_like(c))
+    f = rows.gather(2, (sym + 1)[:, :, None])[:, :, 0] - bs
+    return sym, bs, f
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +255,16 @@ def rans16_enc(sf, shift, K: int, geom: int, order: int):
 
 def _rans16_enc_plain(sf, shift, K: int, geom: int, order: int):
     """Plain PyTorch version of rans16_enc (same arguments)."""
-    B = sf.shape[0]
-    dev = sf.device
+    sfl = sf.to(torch.int64).view(sf.shape[0], K, 4)
+    return _enc16_scan(lambda s: sfl[:, s, :], shift, K, geom, order)
+
+
+def _enc16_scan(fetch, shift, K: int, geom: int, order: int):
+    """The 4x16 encode scan of the plain versions.  ``fetch(s)`` gives
+    step s's (B,4) int64 ``start | freq << 12`` values, processing lane
+    minor."""
+    B = shift.shape[0]
+    dev = shift.device
     i64 = torch.int64
     cap = 4 * K
     sh = shift.to(i64)[:, None]
@@ -245,14 +274,9 @@ def _rans16_enc_plain(sf, shift, K: int, geom: int, order: int):
     # emission-order buffer with one spill column for non-emitting lanes
     buf = torch.zeros((B, cap + 1), dtype=i64, device=dev)
     n = torch.zeros((B,), dtype=i64, device=dev)
-    sfl = sf.to(i64).view(B, K, 4)
     for s in range(K):
-        if order == 1:
-            ok = (lanes == 0) if s < geom else lanes >= 0
-        else:
-            ok = (lanes >= geom) if s == 0 else lanes >= 0
-        ok = ok[None, :]
-        v = sfl[:, s, :]
+        ok = _enc_active(lanes, s, geom, order)
+        v = fetch(s)
         start = v & 0xFFF
         f = (v >> 12) & 0x1FFF
         emit = ok & (X >= ((xmult * f) & _M32))
@@ -266,13 +290,112 @@ def _rans16_enc_plain(sf, shift, K: int, geom: int, order: int):
         xn = ((qq << sh) + (x2 - qq * fs) + start) & _M32
         X = torch.where(ok, xn, X)
         n = n + ei.sum(dim=1)
-    # forward order = reverse of emission order
-    i = torch.arange(cap, device=dev)[None, :]
+    fwd = _reverse_emitted(buf[:, :cap], n)
+    return (_to_i32_bits(X.flip(1)), _to_i16_bits(fwd), n.to(torch.int32))
+
+
+def _enc_active(lanes, s: int, geom: int, order: int):
+    """(1,4) bool: the processing lanes that code a symbol at step s.
+    Order 1: the first geom steps are the state-3 tail (lane 0 alone);
+    order 0: the first step skips the geom padded lanes."""
+    if order == 1:
+        ok = (lanes == 0) if s < geom else lanes >= 0
+    else:
+        ok = (lanes >= geom) if s == 0 else lanes >= 0
+    return ok[None, :]
+
+
+def _reverse_emitted(buf, n):
+    """Forward order = reverse of emission order: out[b, i] =
+    buf[b, n[b]-1-i] for i < n[b], 0 past it."""
+    cap = buf.shape[1]
+    i = torch.arange(cap, device=buf.device)[None, :]
     src = (n[:, None] - 1 - i).clamp(min=0)
-    fwd = torch.where(i < n[:, None], buf[:, :cap].gather(1, src),
-                      torch.zeros_like(src))
-    states = X.flip(1)
-    return (_to_i32_bits(states), _to_i16_bits(fwd), n.to(torch.int32))
+    return torch.where(i < n[:, None], buf.gather(1, src),
+                       torch.zeros_like(src))
+
+
+# ---------------------------------------------------------------------------
+# rans16_enc_fused
+
+def _require_enc_inputs(name, sym, ctx, tables: Tables, K, geom, order):
+    """Argument checks shared by the encoders that fetch their own
+    table entries (rans16_enc_fused here, rans8_enc in rans8_vmem)."""
+    B = sym.shape[0]
+    A = tables.alpha.shape[1]
+    dev = sym.device
+    _require(sym, "sym", torch.uint8, (B, 4 * K), dev)
+    _require(ctx, "ctx", torch.uint8, (B, 4 * K), dev)
+    _require(tables.bases, "bases", torch.int16,
+             (B, A if order == 1 else 1, A + 1), dev)
+    _require(tables.shift, "shift", torch.int32, (B,), dev)
+    if order not in (0, 1) or K < 1 or not 0 <= geom <= 3:
+        raise ValueError(f"{name}: bad geometry")
+
+
+def rans16_enc_fused(sym, ctx, tables: Tables, K: int, geom: int, order: int):
+    """Encode B blocks, looking each symbol's (start, freq) up in the
+    block's own base rows inside the kernel.
+
+    sym, ctx (B, 4K) uint8: dense symbol and context per symbol in
+    processing order (step-major, processing lane minor; ``enc_inputs``
+    makes them); tables with bases (B, A if order else 1, A+1) int16.
+    The entry read is ``ctx * A + sym`` clamped into the block's table,
+    as ``sf_fetch`` clamps its index (ctx is ignored at order 0).
+    Returns what ``rans16_enc`` returns, bit for bit what it returns
+    after ``sf_fetch``.
+    """
+    _require_enc_inputs("rans16_enc_fused", sym, ctx, tables, K, geom, order)
+    B = sym.shape[0]
+    A = tables.alpha.shape[1]
+    dev = sym.device
+    if dev.type == "cpu":
+        return _rans16_enc_fused_plain(sym, ctx, tables, K, geom, order)
+    cap = 4 * K
+    states = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    words = torch.empty((B, cap), dtype=torch.int16, device=dev)
+    counts = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_build.get_lib().rans16_enc_fused_launch(
+            sym.data_ptr(), ctx.data_ptr(), tables.bases.data_ptr(),
+            tables.shift.data_ptr(), states.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), B, K, A, geom, cap, order, _stream(sym))
+    cuda_build.check(err, "rans16_enc_fused")
+    LAUNCHES["rans16_enc_fused"] += 1
+    return states, words, counts
+
+
+def _table_entries(sym, ctx, tables: Tables, K: int, order: int):
+    """fetch(s) -> ((B,4) int64 base of the entry, base of its
+    successor): the in-kernel lookup of the fused encoders, with
+    ``sf_fetch``'s clamp of the flat index."""
+    B = sym.shape[0]
+    A = tables.alpha.shape[1]
+    Ac = A if order == 1 else 1
+    rows = tables.bases.to(torch.int64).reshape(B, Ac * (A + 1))
+    syl = sym.to(torch.int64).view(B, K, 4)
+    cxl = ctx.to(torch.int64).view(B, K, 4)
+
+    def fetch(s):
+        idx = syl[:, s, :]
+        if order == 1:
+            idx = idx + cxl[:, s, :] * A
+        idx = idx.clamp(max=Ac * A - 1)
+        at = (idx // A) * (A + 1) + idx % A
+        return rows.gather(1, at), rows.gather(1, at + 1)
+    return fetch
+
+
+def _rans16_enc_fused_plain(sym, ctx, tables: Tables, K: int, geom: int,
+                            order: int):
+    """Plain PyTorch version of rans16_enc_fused (same arguments)."""
+    entries = _table_entries(sym, ctx, tables, K, order)
+
+    def fetch(s):
+        start, nxt = entries(s)
+        # the value sf_table would hold for this entry (int32 bits)
+        return (start | ((nxt - start) << 12)) & _M32
+    return _enc16_scan(fetch, tables.shift, K, geom, order)
 
 
 def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -300,27 +423,43 @@ def sf_table(tables: Tables) -> torch.Tensor:
     return (start | (freq << 12)).reshape(rows.shape[0], -1).contiguous()
 
 
-def enc_queries(blocks: torch.Tensor, tables: Tables, order: int):
-    """What the encoder's two kernels read, from the raw blocks: the
-    per-block (start | freq << 12) tables, the flat (context, symbol)
-    query per symbol in processing order (B, 4K) int32, K and geom.
-    Counterpart of ``_enc_vmem``'s pre-processing."""
+def enc_inputs(blocks: torch.Tensor, tables: Tables, order: int):
+    """Dense symbol and context per symbol in processing order, (B, 4K)
+    uint8 each, with K and geom (``rans_v2._enc_proc_inputs`` on the
+    dense block; the (K,4,B) views of block-major storage come back as
+    (B, 4K) without a copy)."""
     B, N = blocks.shape
-    A = tables.alpha.shape[1]
     dense = rans_v2._densify(blocks, tables.alpha)
     sym_p, ctx_p, _valid, K, geom = rans_v2._enc_proc_inputs(dense, N, order)
-    del dense, _valid
-    # (K,4,B) views of block-major storage -> (B, 4K), no copy
-    qidx = sym_p.permute(2, 0, 1).reshape(B, 4 * K).to(torch.int32)
+    return (sym_p.permute(2, 0, 1).reshape(B, 4 * K),
+            ctx_p.permute(2, 0, 1).reshape(B, 4 * K), K, geom)
+
+
+def enc_queries(blocks: torch.Tensor, tables: Tables, order: int):
+    """What the prefetching encoder's two kernels read, from the raw
+    blocks: the per-block (start | freq << 12) tables, the flat
+    (context, symbol) query per symbol in processing order (B, 4K)
+    int32, K and geom.  Counterpart of ``_enc_vmem``'s pre-processing."""
+    A = tables.alpha.shape[1]
+    sym, ctx, K, geom = enc_inputs(blocks, tables, order)
+    qidx = sym.to(torch.int32)
     if order == 1:
-        qidx += ctx_p.permute(2, 0, 1).reshape(B, 4 * K).to(torch.int32) * A
+        qidx += ctx.to(torch.int32) * A
     return sf_table(tables), qidx, K, geom
 
 
-def enc_batch(blocks: torch.Tensor, tables: Tables, order: int):
+def enc_batch(blocks: torch.Tensor, tables: Tables, order: int,
+              prefetch: bool = True):
     """Encode a batch of equal-length blocks: counterpart of
-    ``_enc_vmem(prefetch=True)``.  blocks (B,N) uint8.  Returns
-    (states (B,4) int32, words (B,cap) int16 forward, counts (B,))."""
+    ``_enc_vmem``.  blocks (B,N) uint8.  ``prefetch=True`` gathers the
+    table entries first (``sf_fetch``) and encodes from them
+    (``rans16_enc``); ``prefetch=False`` launches the one kernel that
+    looks them up itself (``rans16_enc_fused``).  Returns (states (B,4)
+    int32, words (B,cap) int16 forward, counts (B,)), the same bits
+    either way."""
+    if not prefetch:
+        sym, ctx, K, geom = enc_inputs(blocks, tables, order)
+        return rans16_enc_fused(sym, ctx, tables, K, geom, order)
     tbl, qidx, K, geom = enc_queries(blocks, tables, order)
     sf = sf_fetch(tbl, qidx)
     del qidx

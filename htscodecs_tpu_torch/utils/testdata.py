@@ -5,7 +5,8 @@ consumers (the port and the JAX package in the tests; the kernels and
 their plain versions in ``chip_smoke.py``) can be handed the same
 arrays.  ``synth_tables`` builds valid dense rANS tables at a CHOSEN
 precision (10 or 12 bits per block), which the host table build
-cannot be asked for: it picks the precision itself.
+cannot be asked for: it picks the precision itself.  ``r8_tables``
+gives the rANS 4x8 tables of a batch as the native table build makes them.
 """
 
 from __future__ import annotations
@@ -85,3 +86,28 @@ def synth_tables(blocks: np.ndarray, shift, order: int):
     if order == 0:
         packed = packed[:, 0, :]
     return alpha, packed, A
+
+
+def r8_tables(blocks: np.ndarray, order: int):
+    """Dense rANS 4x8 tables of a batch from the native table build
+    (``native.r8_build_tables_dense``), padded to the batch's alphabet
+    bucket as the batch layer pads them: (alpha (B,A) u8, packed
+    (B,A,A) i32 — (B,A) for order 0).  Rows normalise to 4095 slots."""
+    from .. import native
+    res = [native.r8_build_tables_dense(b, order) for b in blocks]
+    if any(r is None for r in res):
+        raise ValueError("r8_tables: alphabet wider than the dense tables")
+    amax = max(len(r[1]) for r in res)
+    A = next((c for c in _BUCKETS if amax <= c), amax)
+    B = len(res)
+    alpha = np.zeros((B, A), np.uint8)
+    packed = np.zeros((B, A, A) if order == 1 else (B, A), np.int32)
+    for b, (_tab, al, pk) in enumerate(res):
+        a = len(al)
+        alpha[b, :a] = al
+        alpha[b, a:] = al[-1]
+        if order == 1:
+            packed[b, :a, :a] = pk
+        else:
+            packed[b, :a] = pk
+    return alpha, packed

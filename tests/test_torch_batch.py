@@ -60,8 +60,7 @@ def test_compress_is_byte_identical(case, order):
     port_vmem.reset_launches()
     got = port_batch.compress_blocks(blocks, order, engine="device",
                                      device="cpu")
-    assert port_vmem.LAUNCHES == {"rans16_dec": 0, "sf_fetch": 0,
-                                  "rans16_enc": 0}    # no kernel on the CPU
+    assert not any(port_vmem.LAUNCHES.values())       # no kernel on the CPU
     want_host = [ref_r4x16.compress(b, order) for b in blocks]
     assert got == want_host
     assert got == ref_batch.compress_blocks(blocks, order, engine="device")

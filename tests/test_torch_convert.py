@@ -62,3 +62,48 @@ def test_streams_default_counts_cover_the_row():
 def test_shift_vector_rejects_wrong_length():
     with pytest.raises(ValueError):
         convert.shift_vector(np.array([10, 12]), 3)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_tables8_round_trip(order):
+    B, N = 5, 400
+    blocks = testdata.synth_wide(B, N, 9, seed=3)
+    alpha, packed = testdata.r8_tables(blocks, order)
+    A = alpha.shape[1]
+    t = convert.tables8_from_reference(alpha, packed, "cpu")
+    assert t.alpha.dtype == torch.uint8 and t.alpha.shape == (B, A)
+    assert t.bases.dtype == torch.int16
+    assert t.bases.shape == (B, A if order else 1, A + 1)
+    assert t.shift.tolist() == [12] * B
+    # the successor column is each row's own total
+    fq = packed & rans_v2.PACK_MASK
+    tot = fq.sum(axis=-1).reshape(B, -1)
+    np.testing.assert_array_equal(t.bases[:, :, -1].numpy(), tot)
+    assert 4095 in tot
+    al2, pk2 = convert.tables8_to_reference(t, order)
+    np.testing.assert_array_equal(al2, alpha)
+    live = fq > 0
+    np.testing.assert_array_equal(pk2[live], packed[live])
+    assert (pk2[~live] == 0).all()
+    t2 = convert.tables8_from_reference(al2, pk2, "cpu")
+    assert torch.equal(t2.bases, t.bases)
+
+
+def test_streams8_round_trip():
+    rng = np.random.default_rng(9)
+    B, W = 6, 41
+    states = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint64).astype(np.uint32)
+    states[0] = [0x80000000, 0xFFFFFFFF, 0x00800000, 0x7FFFFFFF]
+    stream = rng.integers(0, 256, size=(B, W)).astype(np.uint8)
+    counts = rng.integers(1, W + 1, size=B).astype(np.int32)
+    counts[2] = W
+    st, by, cn = convert.streams8_from_reference(states, stream, "cpu", counts)
+    assert st.dtype == torch.int32 and by.dtype == torch.uint8
+    assert cn.dtype == torch.int32 and int(st[0, 0]) < 0
+    s2, b2, c2 = convert.streams8_to_reference(st, by, cn)
+    assert s2.dtype == np.uint32 and b2.dtype == np.uint8
+    np.testing.assert_array_equal(s2, states)
+    np.testing.assert_array_equal(c2, counts)
+    np.testing.assert_array_equal(b2, stream[:, :W])
+    _st, _by, cn = convert.streams8_from_reference(states, stream, "cpu")
+    assert cn.tolist() == [W] * B

@@ -35,7 +35,17 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert r.returncode == 0, r.stderr
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("MODULES")][0]
     assert line.endswith("BAD []"), line
-    assert int(line.split()[1]) >= 12, line
+    assert int(line.split()[1]) >= 16, line
+
+
+def test_import_walk_reaches_the_rans4x8_modules():
+    import pkgutil
+    import htscodecs_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in ("ops.rans8_core", "ops.rans8_v2", "ops.rans8_vmem",
+                "models.rans4x8", "ops.convert", "models.batch"):
+        assert f"htscodecs_tpu_torch.{mod}" in names
 
 
 def _sources():
@@ -58,13 +68,15 @@ def test_forbidden_pattern_catches_what_it_should():
     assert not _FORBIDDEN.search("# replaces htscodecs_tpu/ops/rans_vmem.py\n")
 
 
-@pytest.mark.parametrize("entry", ["compress", "uncompress", "enc", "dec"])
+@pytest.mark.parametrize("entry", ["compress", "uncompress", "enc", "dec",
+                                   "r4x8_compress", "r4x8_uncompress",
+                                   "enc8", "dec8"])
 def test_default_device_without_a_card_raises(entry):
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from htscodecs_tpu_torch.models import batch
-    from htscodecs_tpu_torch.ops import rans_v2
+    from htscodecs_tpu_torch.ops import rans8_v2, rans_v2
     blocks = [np.zeros(64, np.uint8)] * 20
     z = np.zeros((2, 4), np.uint32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -76,18 +88,32 @@ def test_default_device_without_a_card_raises(entry):
             rans_v2.enc_o0_batch(np.zeros((2, 64), np.uint8),
                                  np.zeros((2, 4), np.uint8),
                                  np.zeros((2, 4), np.int32))
-        else:
+        elif entry == "dec":
             rans_v2.dec_o0_batch(z, np.zeros((2, 8), np.uint16), 64,
                                  np.zeros((2, 4), np.uint8),
                                  np.zeros((2, 4), np.int32))
+        elif entry == "r4x8_compress":
+            batch.r4x8_compress_blocks(blocks, 1, engine="device")
+        elif entry == "r4x8_uncompress":
+            batch.r4x8_uncompress_blocks([bytes(30)])
+        elif entry == "enc8":
+            rans8_v2.enc_o1_batch(np.zeros((2, 64), np.uint8),
+                                  np.zeros((2, 4), np.uint8),
+                                  np.zeros((2, 4, 4), np.int32))
+        else:
+            rans8_v2.dec_o1_batch(z, np.zeros((2, 8), np.uint8), 64,
+                                  np.zeros((2, 4), np.uint8),
+                                  np.zeros((2, 4, 4), np.int32))
 
 
 def test_cuda_tensor_never_takes_the_plain_version():
     """The wrappers pick the plain version by the tensor's device only."""
     import inspect
-    from htscodecs_tpu_torch.ops import rans_vmem
+    from htscodecs_tpu_torch.ops import rans8_vmem, rans_vmem
     for fn in (rans_vmem.rans16_dec, rans_vmem.sf_fetch,
-               rans_vmem.rans16_enc):
+               rans_vmem.rans16_enc, rans_vmem.rans16_enc_fused,
+               rans8_vmem.rans8_enc, rans8_vmem.rans8_dec):
         src = inspect.getsource(fn)
         assert 'dev.type == "cpu"' in src
         assert "try:" not in src and "except" not in src
+        assert src.count("LAUNCHES[") == 1

@@ -110,6 +110,60 @@ def test_order0_matches_xla_engine(B, N, a, mode):
     np.testing.assert_array_equal(got, blocks)
 
 
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("mode", SHIFTS)
+@pytest.mark.parametrize("B,N,a", SHAPES)
+def test_fused_encode_matches_xla_engine_and_prefetch_variant(B, N, a, mode,
+                                                              order):
+    """The encode with the table lookup inside (row_fetch="vmem") vs
+    _enc_scan_v2_pb and vs the port's default variant ("pfv"), through
+    the batch entries."""
+    blocks, alpha, packed, sv = _setup(B, N, a, mode, order)
+    enc = port.enc_o1_batch if order else port.enc_o0_batch
+    assert port.get_enc_variant() == {"row_fetch": "pfv"}
+    pfv = enc(blocks, alpha, packed, sv, device="cpu")
+    port.set_enc_variant(row_fetch="vmem")
+    try:
+        fused = enc(blocks, alpha, packed, sv, device="cpu")
+    finally:
+        port.set_enc_variant(row_fetch="pfv")
+    _assert_streams_equal(fused, _ref_encode(blocks, alpha, packed, sv, order))
+    _assert_streams_equal(fused, pfv)
+
+
+def test_fused_plain_equals_fetch_then_encode_on_holes_and_clamped_symbols():
+    """Bit for bit the sf_fetch + rans16_enc pair, also where no valid
+    encoder goes: freq-0 holes and symbols outside the alphabet."""
+    B, N = 7, 131
+    blocks, alpha, packed, sv = _setup(B, N, 6, "mixed", 1)
+    t = convert.tables_from_reference(alpha, packed, sv, "cpu")
+    A = alpha.shape[1]
+    rng = np.random.default_rng(3)
+    K = 40
+    sym = torch.from_numpy(rng.integers(0, A + 3, (B, 4 * K)).astype(np.uint8))
+    ctx = torch.from_numpy(rng.integers(0, A + 3, (B, 4 * K)).astype(np.uint8))
+    for order, tab in ((1, t), (0, convert.Tables(t.alpha,
+                                                  t.bases[:, 1:2].contiguous(),
+                                                  t.shift))):
+        for geom in (0, 3):
+            qidx = sym.to(torch.int32)
+            if order:
+                qidx = qidx + ctx.to(torch.int32) * A
+            sf = port_vmem.sf_fetch(port_vmem.sf_table(tab), qidx)
+            want = port_vmem.rans16_enc(sf, tab.shift, K, geom, order)
+            got = port_vmem.rans16_enc_fused(sym, ctx, tab, K, geom, order)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def test_enc_variant_names():
+    assert port.ENC_ROW_FETCH == ("pfv", "vmem")
+    with pytest.raises(ValueError):
+        port.set_enc_variant(row_fetch="onehot")
+    port.set_enc_variant()                  # no argument: no change
+    assert port.get_enc_variant() == {"row_fetch": "pfv"}
+
+
 def test_sf_fetch_matches_pallas_interpret():
     """(c) the plain fetch vs the Pallas lane-gather kernel."""
     rng = np.random.default_rng(12)
@@ -203,3 +257,14 @@ def test_wrappers_validate_their_arguments():
     with pytest.raises(ValueError):
         port_vmem.rans16_enc(torch.zeros((2, 7), dtype=torch.int32),
                              t.shift, 2, 0, 0)
+    sym = torch.zeros((2, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        port_vmem.rans16_enc_fused(sym.to(torch.int32), sym, t, 2, 0, 0)
+    with pytest.raises(ValueError):
+        port_vmem.rans16_enc_fused(sym, sym, t, 3, 0, 0)     # 4K != 8
+    with pytest.raises(ValueError):
+        port_vmem.rans16_enc_fused(sym, sym, t, 2, 0, 1)     # order-0 tables
+    with pytest.raises(ValueError):
+        port_vmem.rans16_enc_fused(
+            sym, torch.zeros((2, 8), dtype=torch.uint8, device="meta"),
+            t, 2, 0, 0)
