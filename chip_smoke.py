@@ -9,12 +9,14 @@ What it does, in order (any failure exits non-zero):
 1. prints the device and builds the host C library and the CUDA kernel
    library from the sources in this checkout;
 2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc,
-   rans16_enc_fused, rans8_enc, rans8_dec) against its plain PyTorch
-   version on the card — integer codecs, so the tolerance is 0 — over
-   ragged batch sizes, block lengths with every tail, four alphabet
-   buckets, both orders, 10/12/mixed table precision (4x16) and
-   truncated and garbage streams; rans16_enc_fused is also held against
-   the sf_fetch + rans16_enc pair;
+   rans16_enc_fused, rans8_enc, rans8_dec, arith_enc, arith_dec, rc_enc)
+   against its plain PyTorch version on the card — integer codecs, so
+   the tolerance is 0 — over ragged batch sizes, block lengths with
+   every tail, four alphabet buckets, both orders, 10/12/mixed table
+   precision (4x16) and truncated and garbage streams; rans16_enc_fused
+   is also held against the sf_fetch + rans16_enc pair; the range-coder
+   kernels run over model widths 2..256, ragged lengths, a normalising
+   input, deferred-byte runs and triples replayed from fqz jobs;
 3. drives the main paths at full width through the entry points a user
    calls, the launch counts set to 0 just before each and read just
    after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
@@ -22,16 +24,23 @@ What it does, in order (any failure exits non-zero):
    order 1, the same at order 0, and a wide-alphabet batch; then
    ``batch.r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` (rANS
    4x8) on the same three batches; then the 4x16 order-1 batch once
-   more under ``set_enc_variant(row_fetch="vmem")``.  Every block must
-   round-trip, a spread sample of streams must be byte-identical to the
-   host coder's, the "vmem" streams must equal the default variant's,
-   and exactly the kernels of each path must have been launched;
+   more under ``set_enc_variant(row_fetch="vmem")``; then
+   ``batch.arith_compress_blocks`` / ``arith_uncompress_blocks`` on the
+   quality batch at order 0 and 1 and on the wide batch at order 1; then
+   ``batch.fqz_compress_blocks(engine="device")`` on 192 jobs of 10000
+   records x 150 quality values, decoded back through
+   ``fqz_decompress_blocks``.  Every block must round-trip, a spread
+   sample of streams must be byte-identical to the host coder's, the
+   "vmem" streams must equal the default variant's, and exactly the
+   kernels of each path must have been launched;
 4. profiles one more pass of each order-1 main path (host seconds by
    function), then, at the shapes the main path gave each kernel,
    holds it against its plain version once more and times it (CUDA
    events, warm, median of 5) beside its roofline bound, its plain
-   version (one run) and, for sf_fetch, ``torch.gather``; and times the
-   two 4x16 encode variants whole, tensor preparation included.
+   version (one run; the range-coder kernels' plain versions at a
+   length cut to 8192) and, for sf_fetch, ``torch.gather``; times the
+   two 4x16 encode variants whole, tensor preparation included, and the
+   arith kernels at 1 to 32 threads per CTA.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -57,9 +66,10 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from htscodecs_tpu_torch import cuda_build, native  # noqa: E402
-from htscodecs_tpu_torch.models import batch, rans4x8, rans4x16  # noqa: E402
-from htscodecs_tpu_torch.ops import (convert, rans8_vmem, rans_v2,  # noqa: E402
-                                     rans_vmem)
+from htscodecs_tpu_torch.models import (arith, batch, fqz,  # noqa: E402
+                                        rans4x8, rans4x16)
+from htscodecs_tpu_torch.ops import (arith_vmem, convert,  # noqa: E402
+                                     rans8_vmem, rans_v2, rans_vmem, rc_vmem)
 from htscodecs_tpu_torch.utils import testdata  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -197,6 +207,99 @@ def check_case8(blocks, order, label, garbage=False) -> None:
             fail(f"rans8_dec did not return the input at {label}")
 
 
+def same_bytes(got, want) -> bool:
+    """Equality of two coders' (bytes, counts) on each row's live
+    prefix."""
+    (by, cn), (by2, cn2) = got, want
+    return torch.equal(cn, cn2) and same_live(by, by2, cn)
+
+
+def check_arith_case(blocks, lens, ms, order, label, garbage=False) -> None:
+    """arith_enc and arith_dec on one ragged batch."""
+    B, N = blocks.shape
+    M = int(ms.max())
+    bt, lt, mt = (torch.from_numpy(x).to(DEV) for x in (blocks, lens, ms))
+    enc_k = arith_vmem.arith_enc(bt, lt, mt, M, order)
+    enc_p = arith_vmem._arith_enc_plain(bt, lt, mt, M, order)
+    torch.cuda.synchronize()
+    if not same_bytes(enc_k, enc_p):
+        fail(f"arith_enc != plain at {label}")
+    by_k, cn_k = enc_k
+    stream = by_k[:, :max(int(cn_k.max()), 1)].contiguous()
+    variants = [("", stream, cn_k)]
+    if garbage:
+        g = torch.Generator(device="cpu").manual_seed(B * 7919 + N)
+        noise = torch.randint(0, 256, stream.shape, generator=g,
+                              dtype=torch.uint8).to(DEV)
+        variants += [(" truncated", stream, cn_k // 2),
+                     (" garbage", noise, cn_k)]
+    for tag, st, cn in variants:
+        out_k = arith_vmem.arith_dec(st, cn, lt, mt, M, N, order)
+        out_p = arith_vmem._arith_dec_plain(st, cn, lt, mt, M, N, order)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            fail(f"arith_dec != plain at {label}{tag}")
+        # a few bytes may code to under 6, which decodes nothing
+        if not tag and N >= 33 and not same_live(out_k, bt, lt):
+            fail(f"arith_dec did not return the input at {label}")
+
+
+def check_rc_case(triples, label) -> None:
+    """rc_enc on one ragged batch of (acc, f, tot) triples."""
+    acc, f, tot, cn = convert.triples_from_reference(triples, DEV)
+    enc_k = rc_vmem.rc_enc(acc, f, tot, cn)
+    enc_p = rc_vmem._rc_enc_plain(acc, f, tot, cn)
+    torch.cuda.synchronize()
+    if not same_bytes(enc_k, enc_p):
+        fail(f"rc_enc != plain at {label}")
+
+
+def phase_kernels_rc(quick: bool) -> int:
+    """The comparison grid of the three range-coder kernels.  The plain
+    versions take about a millisecond of host time per byte (event)
+    index, whatever B, so length 1000 runs at two widths only and the
+    normalising input (one symbol repeated past 4096 times, so the
+    total reaches 65519 and every entry is halved) once per order."""
+    Bs, Ns, widths = (1, 5, 130), (1, 8, 33, 100, 1000), (2, 6, 40, 97, 256)
+    if quick:
+        Bs, Ns, widths = (5, 130), (8, 100), (6, 256)
+    n = 0
+    for order in (0, 1):
+        for B in Bs:
+            for N in Ns:
+                for width in widths:
+                    if N == 1000 and (width not in (40, 256) or B == 1):
+                        continue
+                    blocks, lens, ms = testdata.arith_blocks(
+                        B, N, width, seed=B * 100003 + N * 13 + width)
+                    check_arith_case(
+                        blocks, lens, ms, order,
+                        f"arith B={B} N={N} width={width} order={order}",
+                        garbage=N == 100)
+                    n += 1
+        N = 1200 if quick else 4500
+        blocks = np.full((2, N), 7, np.uint8)
+        blocks[:, ::97] = 3
+        check_arith_case(blocks, np.array([N, N - 7], np.int32),
+                         np.full(2, 8, np.int32), order,
+                         f"arith normalising N={N} order={order}")
+        n += 1
+    jobs = testdata.synth_fqz_jobs(5, 30, 50, seed=3)
+    parts = [fqz._replay_job(j, 4) for j in jobs]
+    if any(p is None for p in parts):
+        fail("fqz_enc_replay refused a job of the comparison grid")
+    cases = [("fqz replay 5 x 30 x 50", [p[1] for p in parts]),
+             ("deferred runs", [testdata.ff_run_triples(r)
+                                for r in (300, 1, 40)]),
+             ("random B=130 n=100", testdata.random_triples(130, 100, 1))]
+    if not quick:
+        cases.append(("random B=5 n=1000", testdata.random_triples(5, 1000, 2)))
+    for label, triples in cases:
+        check_rc_case(triples, label)
+        n += 1
+    return n
+
+
 def phase_kernels(quick: bool) -> int:
     """The comparison grid.  The plain versions are bound by the host's
     launch rate (time ~ steps, whatever B), so the longest length runs
@@ -249,6 +352,9 @@ R4X16_VMEM = Codec("rans4x16 row_fetch=vmem", batch.compress_blocks,
 R4X8 = Codec("rans4x8", batch.r4x8_compress_blocks,
              batch.r4x8_uncompress_blocks, rans4x8.compress,
              ("rans8_enc", "rans8_dec"))
+ARITH = Codec("arith", batch.arith_compress_blocks,
+              batch.arith_uncompress_blocks, arith.compress,
+              ("arith_enc", "arith_dec"))
 
 
 def run_main_path(codec, name, blocks, order, sample):
@@ -289,39 +395,82 @@ def run_main_path(codec, name, blocks, order, sample):
             fail(f"{name}: kernel {k} was not launched on the main path")
         if k not in codec.kernels and v:
             fail(f"{name}: kernel {k} is not of this path but was launched")
+        if codec is ARITH and k in codec.kernels and v != 1:
+            fail(f"{name}: kernel {k} launched {v} times for one batch")
     log(f"main path {name}: {B} blocks round-trip, {min(sample, B)} sampled "
         f"streams byte-identical to the host coder "
         f"({time.perf_counter() - t:.1f} s of host coding)")
     return launches, streams
 
 
-def profile_main_path(codec, blocks, order) -> None:
-    """One more pass of the main path under cProfile: cumulative host
-    seconds of the port's own functions, the breakdown of the wall time.
-    Kernels run asynchronously, so their device time shows up where the
-    host first waits for them (the copy back in streams_to_reference /
-    _dec_batch)."""
+def run_fqz_path(jobs, sample):
+    """fqz_compress_blocks(engine="device") -> fqz_decompress_blocks;
+    returns the launch counts of the run.  A job that the native replay
+    refuses would send the whole batch to the host coder: the rc_enc
+    count shows that this batch did not take that route."""
+    nbytes = sum(len(j[0]) for j in jobs)
+    mb = nbytes / 1e6
+    rans_vmem.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = batch.fqz_compress_blocks(jobs, engine="device")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = batch.fqz_decompress_blocks(streams)
+    t2 = time.perf_counter()
+    launches = dict(rans_vmem.LAUNCHES)
+    csize = sum(len(s) for s in streams)
+    log(f"main path fqz: {len(jobs)} jobs x {len(jobs[0][1])} records x "
+        f"{jobs[0][1][0]} values, compress {t1 - t0:.3f} s "
+        f"({mb / (t1 - t0):.1f} MB/s) decompress on the host {t2 - t1:.3f} s "
+        f"({mb / (t2 - t1):.1f} MB/s) ratio {csize / nbytes:.4f} "
+        f"launches {launches}")
+    for j, (job, out) in enumerate(zip(jobs, outs)):
+        if out != job[0].tobytes():
+            fail(f"fqz: job {j} did not round-trip")
+    t = time.perf_counter()
+    for j in np.linspace(0, len(jobs) - 1, min(sample, len(jobs))).astype(int):
+        if streams[j] != fqz.compress(*jobs[j]):
+            fail(f"fqz: stream {j} differs from the host coder's")
+    for k, v in launches.items():
+        if v != (1 if k == "rc_enc" else 0):
+            fail(f"fqz: kernel {k} launched {v} times for one batch")
+    log(f"main path fqz: {len(jobs)} jobs round-trip, {min(sample, len(jobs))} "
+        f"sampled streams byte-identical to the host coder "
+        f"({time.perf_counter() - t:.1f} s of host coding)")
+    return launches
+
+
+def profile_call(label, fn, *args):
+    """One call under cProfile: cumulative host seconds of the port's
+    own functions, the breakdown of the wall time.  Kernels run
+    asynchronously, so their device time shows up where the host first
+    waits for them (the copy back of counts or bytes)."""
     import cProfile
     import pstats
-    for fn, arg in ((codec.compress, blocks), (codec.uncompress, None)):
-        name = fn.__name__
-        prof = cProfile.Profile()
-        t0 = time.perf_counter()
-        if arg is None:
-            prof.runcall(fn, streams)
-        else:
-            streams = prof.runcall(fn, arg, order)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rows = [(ct, nc, f"{Path(file).name}:{func}")
-                for (file, _ln, func), (_cc, nc, _tt, ct, _callers)
-                in pstats.Stats(prof).stats.items()
-                if "htscodecs_tpu_torch" in file and ct >= 0.01 * wall]
-        rows.sort(reverse=True)
-        log(f"profile {name} order={order}: wall {wall:.3f} s under cProfile; "
-            "cumulative seconds by function:")
-        for ct, nc, label in rows[:14]:
-            print(f"    {ct:8.3f} s  {nc:6d} calls  {label}", flush=True)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    res = prof.runcall(fn, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(ct, nc, f"{Path(file).name}:{func}")
+            for (file, _ln, func), (_cc, nc, _tt, ct, _callers)
+            in pstats.Stats(prof).stats.items()
+            if "htscodecs_tpu_torch" in file and ct >= 0.01 * wall]
+    rows.sort(reverse=True)
+    log(f"profile {label}: wall {wall:.3f} s under cProfile; "
+        "cumulative seconds by function:")
+    for ct, nc, name in rows[:14]:
+        print(f"    {ct:8.3f} s  {nc:6d} calls  {name}", flush=True)
+    return res
+
+
+def profile_main_path(codec, blocks, order) -> None:
+    """One more pass of a main path under cProfile."""
+    streams = profile_call(f"{codec.compress.__name__} order={order}",
+                           codec.compress, blocks, order)
+    profile_call(f"{codec.uncompress.__name__} order={order}",
+                 codec.uncompress, streams)
 
 
 def max_abs_diff(a, b, live=None) -> int:
@@ -522,6 +671,137 @@ def kernel_times8(blocks, order, launches):
     ]
 
 
+PLAIN_CUT = 8192     # byte (event) indices the range-coder plain versions run
+
+
+def bytes_err(got, want) -> int:
+    """Max abs difference of two coders' (bytes, counts), the bytes
+    compared up to each block's count."""
+    (by, cn), (by2, cn2) = got, want
+    live = torch.arange(by.shape[1], device=DEV)[None, :] < cn[:, None]
+    return max(max_abs_diff(cn, cn2), max_abs_diff(by, by2, live))
+
+
+def kernel_times_arith(blocks, order, launches):
+    """arith_enc and arith_dec at the shape the main path gave them.
+    The plain versions would take most of a minute each at N = 65536:
+    kernel and plain version are held against each other at the main
+    path's B with N cut to PLAIN_CUT, and ``plain_ms`` is the plain
+    version's time at that N (``plain_shape`` says so); at the full
+    shape the check is the round trip here and the host coder's bytes
+    in the main path."""
+    B, N = blocks.shape
+    ms_np = blocks.max(axis=1).astype(np.int32) + 1
+    M = int(ms_np.max())
+    bt = torch.from_numpy(blocks).to(DEV)
+    mt = torch.from_numpy(ms_np).to(DEV)
+    lt = torch.full((B,), N, dtype=torch.int32, device=DEV)
+    shape = f"B={B} N={N} M={M} order={order}"
+    plain = {}
+
+    by, cn = arith_vmem.arith_enc(bt, lt, mt, M, order)
+    ms_enc = cuda_ms(lambda: arith_vmem.arith_enc(bt, lt, mt, M, order))
+    nbytes = int(cn.sum())
+    stream = by[:, :max(int(cn.max()), 1)].contiguous()
+    del by
+    out = arith_vmem.arith_dec(stream, cn, lt, mt, M, N, order)
+    ms_dec = cuda_ms(lambda: arith_vmem.arith_dec(stream, cn, lt, mt, M, N,
+                                                  order))
+    err_dec = max_abs_diff(out, bt)
+    del out, stream
+
+    # kernel against plain version at N cut to PLAIN_CUT
+    Nc = min(N, PLAIN_CUT)
+    bc = bt[:, :Nc].contiguous()
+    lc = torch.full((B,), Nc, dtype=torch.int32, device=DEV)
+    enc_c = arith_vmem.arith_enc(bc, lc, mt, M, order)
+    pl_enc = once(lambda: plain.update(enc=arith_vmem._arith_enc_plain(
+        bc, lc, mt, M, order)))
+    err_enc = bytes_err(enc_c, plain.pop("enc"))
+    sc = enc_c[0][:, :max(int(enc_c[1].max()), 1)].contiguous()
+    out_c = arith_vmem.arith_dec(sc, enc_c[1], lc, mt, M, Nc, order)
+    pl_dec = once(lambda: plain.update(dec=arith_vmem._arith_dec_plain(
+        sc, enc_c[1], lc, mt, M, Nc, order)))
+    err_dec = max(err_dec, max_abs_diff(out_c, plain.pop("dec")),
+                  max_abs_diff(out_c, bc))
+
+    # bytes: the blocks, lengths and max-symbol counts in, the emitted
+    # bytes and the counts out (decode: the reverse); the model bank is
+    # scratch.  Integer operations per byte: a 32-bit divide (~20, as in
+    # the rANS encoders' count), the multiply-add and carry test (4), the
+    # first model entry (6), two shift tests and a byte store (8), the
+    # model update (8); decode has a second divide.
+    io = B * N + nbytes + B * 12
+    ref = "htscodecs_tpu/ops/arith_vmem.py"
+    entries = [
+        entry("arith_enc", "arith_enc.cu", f"{ref}:310", shape, launches,
+              ms_enc, pl_enc, err_enc, io, 46 * B * N, None),
+        entry("arith_dec", "arith_dec.cu", f"{ref}:509", shape, launches,
+              ms_dec, pl_dec, err_dec, io, 66 * B * N, None)]
+    for e in entries:
+        e["plain_shape"] = f"B={B} N={Nc} M={M} order={order}"
+    return entries
+
+
+def arith_thread_sweep(blocks):
+    """arith_enc / arith_dec ms at both orders by threads per CTA (one
+    block per thread either way): what ``arith_vmem.threads_per_cta``
+    chooses from."""
+    B, N = blocks.shape
+    ms_np = blocks.max(axis=1).astype(np.int32) + 1
+    M = int(ms_np.max())
+    bt = torch.from_numpy(blocks).to(DEV)
+    mt = torch.from_numpy(ms_np).to(DEV)
+    lt = torch.full((B,), N, dtype=torch.int32, device=DEV)
+    sweep = {"chosen": arith_vmem.threads_per_cta(B, DEV)}
+    for order in (0, 1):
+        by, cn = arith_vmem.arith_enc(bt, lt, mt, M, order)
+        stream = by[:, :max(int(cn.max()), 1)].contiguous()
+        del by
+        for tpb in (1, 2, 4, 8, 32):
+            sweep[f"order{order} threads{tpb}"] = [
+                cuda_ms(lambda: arith_vmem.arith_enc(
+                    bt, lt, mt, M, order, threads=tpb), reps=3),
+                cuda_ms(lambda: arith_vmem.arith_dec(
+                    stream, cn, lt, mt, M, N, order, threads=tpb), reps=3)]
+    return sweep
+
+
+def kernel_times_rc(jobs, launches):
+    """rc_enc at the shape the fqz main path gave it: the triples of
+    all jobs, replayed once more on the host.  Kernel and plain version
+    are held against each other on the first PLAIN_CUT events of each
+    job; at the full shape the check is the host coder's bytes in the
+    main path."""
+    parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
+    if any(p is None for p in parts):
+        fail("fqz_enc_replay refused a job of the main path")
+    acc, f, tot, cn = convert.triples_from_reference(
+        [p[1] for p in parts], DEV)
+    del parts
+    B, Kp = acc.shape
+    plain = {}
+    _by, nb = rc_vmem.rc_enc(acc, f, tot, cn)
+    ms_rc = cuda_ms(lambda: rc_vmem.rc_enc(acc, f, tot, cn))
+    nev, nbytes = int(cn.sum()), int(nb.sum())
+    del _by
+
+    Kc = min(Kp, PLAIN_CUT)
+    ac, fc, tc = (x[:, :Kc].contiguous() for x in (acc, f, tot))
+    cc = cn.clamp(max=Kc)
+    enc_c = rc_vmem.rc_enc(ac, fc, tc, cc)
+    pl_rc = once(lambda: plain.update(rc=rc_vmem._rc_enc_plain(ac, fc, tc, cc)))
+    err = bytes_err(enc_c, plain.pop("rc"))
+    # 6 bytes per event and the counts in, the emitted bytes and counts
+    # out; per event a divide (~20), multiply-add and carry test (4), two
+    # shift tests and a byte store (8)
+    e = entry("rc_enc", "rc_enc.cu", "htscodecs_tpu/ops/rc_vmem.py:202",
+              f"B={B} events={Kp}", launches, ms_rc, pl_rc, err,
+              6 * nev + nbytes + 8 * B, 32 * nev, None)
+    e["plain_shape"] = f"B={B} events={Kc}"
+    return [e]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--blocks", type=int, default=4096,
@@ -554,8 +834,12 @@ def main() -> None:
     t = time.perf_counter()
     rans_vmem.reset_launches()
     ncases = phase_kernels(args.quick)
-    log(f"kernels == plain versions (tolerance 0) on {ncases} cases in "
+    log(f"rANS kernels == plain versions (tolerance 0) on {ncases} cases in "
         f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ncases = phase_kernels_rc(args.quick)
+    log(f"range-coder kernels == plain versions (tolerance 0) on {ncases} "
+        f"cases in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"kernels_vs_plain": [
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
@@ -577,7 +861,6 @@ def main() -> None:
     launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
     run_main_path(R4X8, "synth4 order 0", q4, 0, 16)
     run_main_path(R4X8, "wide41 order 1", wide, 1, 16)
-    del wide
 
     # the 4x16 encode with the table lookup inside the kernel
     if rans_v2.get_enc_variant()["row_fetch"] != "pfv":
@@ -592,17 +875,41 @@ def main() -> None:
         "the default variant's")
     del streams1, streams_v
 
+    # arith_dynamic: the adaptive range coder, both orders
+    launches["arith"], _ = run_main_path(ARITH, "synth4 order 1", q4, 1, 256)
+    run_main_path(ARITH, "synth4 order 0", q4, 0, 256)
+    run_main_path(ARITH, "wide41 order 1", wide, 1, 256)
+    del wide
+
+    # fqzcomp_qual: host model replay + the rc_enc kernel.  192 jobs of
+    # 10000 records x 150 values (the CRAM default slice of 10000 reads
+    # at a 150-base read length), scaled with --blocks
+    t = time.perf_counter()
+    jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
+    log(f"generated {len(jobs)} fqz jobs in {time.perf_counter() - t:.1f} s")
+    launches["fqz"] = run_fqz_path(jobs, 16)
+
     profile_main_path(R4X16, q4, 1)
     profile_main_path(R4X8, q4, 1)
+    profile_main_path(ARITH, q4, 1)
+    profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
+                 "device")
     entries, variants = kernel_times(q4, 1, launches)
     entries += kernel_times8(q4, 1, launches)
+    entries += kernel_times_arith(q4, 1, launches["arith"])
+    sweep = arith_thread_sweep(q4)
     del q4
+    entries += kernel_times_rc(jobs, launches["fqz"])
+    del jobs
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
-            f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms)")
+            f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms"
+            f"{' at ' + e['plain_shape'] if 'plain_shape' in e else ''})")
     log(f"4x16 encode whole (densify + inputs + kernels), ms: {variants}")
     print(json.dumps({"enc_variant_ms": variants}), flush=True)
+    log(f"arith [enc, dec] ms by order and threads per CTA: {sweep}")
+    print(json.dumps({"arith_threads_per_cta_ms": sweep}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,20 @@
 A second package beside the JAX one, which stays in the repository as
 the frozen reference.  The port imports ``torch``, never ``jax``, and
 nothing of ``htscodecs_tpu``: it keeps its own copy of the host code it
-needs.  Ported so far: the batched rANS 4x16 codec, order 0 and 1
-(CRAM 3.1), bitstream-identical to the reference:
+needs.  Ported so far, bitstream-identical to the reference: the
+batched rANS 4x16 (CRAM 3.1), rANS 4x8 (CRAM 3.0) and arith_dynamic
+(CRAM 3.1) codecs, order 0 and 1 each, and the fqzcomp_qual encode:
 
-- ``models.batch.compress_blocks / uncompress_blocks``: the entry
-  points; groups of equal-length blocks go to the CUDA engine;
-- ``models.rans4x16``: the single-block host codec with the full
-  transform stack (the oracle, and the route of small groups, wide
-  alphabets and transform-flagged orders);
-- ``ops.rans_vmem``: three hand-written CUDA kernels (``rans16_dec``,
-  ``sf_fetch``, ``rans16_enc``; sources in ``csrc/``) with their plain
-  PyTorch versions; built by ``nvcc`` at first use into ``_build/``;
+- ``models.batch``: the entry points (``compress_blocks /
+  uncompress_blocks``, ``r4x8_*``, ``arith_*``, ``fqz_*``); groups of
+  equal-length blocks go to the CUDA engines;
+- ``models.rans4x16``, ``models.rans4x8``, ``models.arith``,
+  ``models.fqz``: the single-block host codecs (the oracles, and the
+  route of small groups and transform-flagged orders);
+- ``ops.rans_vmem``, ``ops.rans8_vmem``, ``ops.arith_vmem``,
+  ``ops.rc_vmem``: nine hand-written CUDA kernels (sources in
+  ``csrc/``) with their plain PyTorch versions; built by ``nvcc`` at
+  first use into ``_build/``;
 - ``ops.convert``: tables and streams between the reference's numpy
   layouts and the port's tensors;
 - ``native``: the host C runtime (tables, scalar coders), built by the

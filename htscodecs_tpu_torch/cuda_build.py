@@ -107,6 +107,12 @@ def _declare(lib) -> None:
     lib.rans8_enc_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
     lib.rans8_dec_launch.restype = _int
     lib.rans8_dec_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
+    lib.arith_enc_launch.restype = _int
+    lib.arith_enc_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
+    lib.arith_dec_launch.restype = _int
+    lib.arith_dec_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
+    lib.rc_enc_launch.restype = _int
+    lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 4 + [_vp]
 
 
 def get_lib():

@@ -1,4 +1,5 @@
-"""Batched block codec API (rANS 4x16 and rANS 4x8, order 0 and 1).
+"""Batched block codec API (rANS 4x16, rANS 4x8 and arith_dynamic,
+order 0 and 1; the fqzcomp_qual encode).
 
 Counterpart of ``htscodecs_tpu/models/batch.py`` for the plain orders.
 Compresses/decompresses many independent CRAM blocks at once: the
@@ -18,11 +19,23 @@ layer for the CRAM 3.0 codec (rANS 4x8): tables from the native dense
 table build, payload scans in ``ops/rans8_vmem.py``, the pure-Python
 ``rans4x8`` coder for everything the batched engine does not take.
 
+``arith_compress_blocks`` / ``arith_uncompress_blocks`` are the layer
+for the adaptive arith_dynamic codec: groups of equal-length plain
+order-0/1 blocks go to ``ops/arith_vmem.py`` whatever their alphabet,
+anything else (RLE, PACK, STRIPE, EXT, CAT flags; blocks under 8 bytes)
+to the host codec ``models/arith.py``.  ``fqz_compress_blocks`` replays
+each job's models on the host and runs the range coders of all jobs in
+one kernel (``fqz.compress_batch_device``); ``fqz_decompress_blocks``
+is the host decoder over the thread pool.  In the JAX package
+``engine="auto"`` means the host for these two codecs; here, as for the
+rANS entries, it means the card for every large enough group.
+
 Transform-flagged orders (PACK / RLE / STRIPE / NOSZ) are not batched
 yet: they go to the host ``rans4x16.compress`` / ``uncompress`` block
 by block, byte-exact.
 
-Every entry point takes ``device`` and defaults to ``"cuda"``.  With no
+Every entry point but the host-only ``fqz_decompress_blocks`` takes
+``device`` and defaults to ``"cuda"``.  With no
 card that default raises; ``device="cpu"`` runs the engine's plain
 PyTorch versions (what the CPU tests do).  Nothing falls back from a
 failed kernel to the CPU.
@@ -36,9 +49,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import rans4x8, rans4x16
+from . import arith, fqz, rans4x8, rans4x16
 from .. import native
-from ..ops import rans8_v2, rans_v2
+from ..ops import arith_vmem, rans8_v2, rans_v2
 from ..utils import varint
 
 # Below this many blocks in a shape group, the host path wins (device
@@ -466,3 +479,135 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
         for k, (i, _s) in enumerate(items):
             out[i] = res[k].tobytes()
     return out  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------
+# arith_dynamic (CRAM 3.1 adaptive range coder)
+
+def arith_compress_blocks(blocks, order: int, engine: str = "auto",
+                          device="cuda") -> list[bytes]:
+    """Compress a sequence of blocks with the adaptive arith codec.
+
+    Groups of equal-length blocks of a plain order (0 or 1) are coded by
+    the batched engine; any other order bit-field and blocks under 8
+    bytes go to ``arith.compress`` block by block.  Streams are
+    byte-identical to ``arith.compress`` in every path.
+
+    engine: "auto" | "device" | "host".
+    """
+    dev = rans_v2.check_device(device)
+    arrs = [_as_u8(b) for b in blocks]
+    out: list[bytes | None] = [None] * len(arrs)
+    groups: dict[int, list[int]] = defaultdict(list)
+    for i, a in enumerate(arrs):
+        if order in (0, 1) and engine != "host" and len(a) >= 8:
+            groups[len(a)].append(i)
+        else:
+            out[i] = arith.compress(a, order)
+    for n, idxs in groups.items():
+        if _small_group(len(idxs), n, engine):
+            for i in idxs:
+                out[i] = arith.compress(arrs[i], order)
+            continue
+        batch = np.stack([arrs[i] for i in idxs])
+        ms = batch.max(axis=1).astype(np.int32) + 1
+        res = arith_vmem.enc_batch(batch, np.full(len(idxs), n, np.int32),
+                                   ms, order, device=dev)
+        head = bytearray([order])
+        varint.put_uint(head, n)
+        for k, i in enumerate(idxs):
+            # the stream stores a max symbol + 1 of 256 as 0
+            if 1 + len(res[k]) >= n:
+                out[i] = arith.compress(arrs[i], order)     # CAT framing
+            else:
+                out[i] = bytes(head) + bytes([int(ms[k]) & 0xFF]) + res[k]
+    return out  # type: ignore[return-value]
+
+
+def arith_uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
+                            device="cuda") -> list[bytes]:
+    """Decompress a sequence of arith streams.
+
+    Plain order-0/1 streams are peeled on the host and each (order,
+    out size) group is decoded by the batched engine; flagged streams
+    go to ``arith.uncompress``.  A valid stream decodes to the same
+    bytes either way; a truncated one decodes as the batched engine
+    defines it (reads past the end give 0), not as the host coder does.
+    """
+    dev = rans_v2.check_device(device)
+    streams = [bytes(s) for s in streams]
+    out: list[bytes | None] = [None] * len(streams)
+    groups: dict[tuple, list] = defaultdict(list)
+
+    def host(i):
+        out[i] = arith.uncompress(
+            streams[i], out_sizes[i] if out_sizes is not None else None)
+
+    for i, s in enumerate(streams):
+        if not s:
+            raise ValueError("corrupt arith stream")
+        if engine == "host" or s[0] & ~1 or len(s) < 3:
+            host(i)
+            continue
+        osz, pos = varint.get_uint(s, 1, len(s))
+        if (pos >= len(s) or not 0 < osz < 2**31 - 1
+                or (out_sizes is not None and osz > out_sizes[i])):
+            host(i)
+            continue
+        groups[(s[0], osz)].append((i, pos))
+    for (order, osz), items in groups.items():
+        if _small_group(len(items), osz, engine):
+            for i, _pos in items:
+                host(i)
+            continue
+        # the byte after the size is max symbol + 1, 256 stored as 0
+        ms = [streams[i][pos] or 256 for i, pos in items]
+        dec = arith_vmem.dec_batch(
+            [streams[i][pos + 1:] for i, pos in items],
+            [osz] * len(items), ms, order, device=dev)
+        for k, (i, _pos) in enumerate(items):
+            out[i] = dec[k].tobytes()
+    return out  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------
+# fqzcomp_qual (CRAM 3.1 quality codec)
+
+def fqz_compress_blocks(jobs, engine: str = "auto",
+                        device="cuda") -> list[bytes]:
+    """Compress many fqzcomp_qual slices.
+
+    jobs: sequence of (data, lens[, flags[, strat]]) tuples as accepted
+    by ``fqz.compress``.  The batched path replays each job's models on
+    the host (native C over the thread pool) and runs the range-coder
+    chains of all jobs in one kernel; when the native replay refuses a
+    job, and under engine="host", the jobs are coded by ``fqz.compress``
+    over the thread pool.  Streams are byte-identical either way.
+    Without the native host library the batched path raises
+    RuntimeError; only engine="host" works then.
+
+    engine: "auto" | "device" | "host".
+    """
+    dev = rans_v2.check_device(device)
+    jobs = list(jobs)
+    nbytes = sum(len(j[0]) for j in jobs) // max(len(jobs), 1)
+    if engine != "host" and not _small_group(len(jobs), nbytes, engine):
+        res = fqz.compress_batch_device(jobs, device=dev, pmap=_pmap)
+        if res is not None:
+            return res
+
+    def one(job):
+        data, lens, *rest = job
+        flags = rest[0] if len(rest) > 0 else None
+        strat = rest[1] if len(rest) > 1 else 0
+        return fqz.compress(data, lens, flags, strat=strat)
+
+    return _pmap(one, jobs)
+
+
+def fqz_decompress_blocks(streams) -> list[bytes]:
+    """Decompress many fqzcomp_qual streams on the host, over the thread
+    pool: the context of a symbol depends on the symbols decoded before
+    it, so there is no batched decode (the JAX package has none either)
+    and the call needs no device."""
+    return _pmap(fqz.decompress, [bytes(s) for s in streams])

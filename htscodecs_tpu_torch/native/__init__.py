@@ -3,7 +3,8 @@
 Compiles ``hostkernels.c`` with the system compiler at first use into
 the package's ``_build/`` directory (keyed by content hash, so a stale
 library is never loaded) and exposes numpy-friendly wrappers for the
-functions the batched rANS 4x16 and 4x8 paths call.  Without a compiler
+functions the batched rANS 4x16 and 4x8 paths and the adaptive codecs
+(arith_dynamic, fqzcomp_qual) call.  Without a compiler
 ``available()`` is False and the callers use the pure-Python oracle
 engines.
 
@@ -39,6 +40,7 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i64 = ctypes.c_int64
 _i32 = ctypes.c_int32
+_int = ctypes.c_int
 
 
 def _build() -> ctypes.CDLL | None:
@@ -109,6 +111,24 @@ def _declare(lib) -> None:
     for nm in ("r8_build_tables_o0_dense", "r8_build_tables_o1_dense"):
         _sig(getattr(lib, nm), _i64,
              [_u8p, _i64, _u8p, _i64, _u8p, _i32p, _i32, _i32p])
+    for nm in ("arith_enc_o0", "arith_enc_o1", "arith_enc_o0_rle",
+               "arith_enc_o1_rle", "arith_dec_o0", "arith_dec_o1",
+               "arith_dec_o0_rle", "arith_dec_o1_rle"):
+        _sig(getattr(lib, nm), _i64, [_u8p, _i64, _u8p, _i64])
+    _sig(lib.fqz_stats1, _i64,
+         [_u8p, _i64, _i64p, _i64p, _i64, _i64, _u8p, _i64p, _i64p, _i64p,
+          _i64p])
+    _sig(lib.fqz_stats2, _i64, [_u8p, _i64, _i64p, _i64p, _i64, _u8p, _i64p])
+    # data, n, lens, flags, nrec, gflags, nparam, max_sel, max_sym, stab,
+    # pm_ints, qmaps, qtabs, ptabs, dtabs: the arguments fqz_enc,
+    # fqz_enc_replay and (from gflags on) fqz_dec share
+    _gp = [_int, _int, _int, _int, _u8p] + [_u32p] * 5
+    _sig(lib.fqz_enc, _i64,
+         [_u8p, _i64, _u32p, _u32p, _i64] + _gp + [_u8p, _i64])
+    _sig(lib.fqz_enc_replay, _i64,
+         [_u8p, _i64, _u32p, _u32p, _i64] + _gp + [_u16p] * 3 + [_i64])
+    _sig(lib.fqz_dec, _i64,
+         [_u8p, _i64, _i64] + _gp + [_u8p, _u32p, _u8p, _i64])
 
 
 def available() -> bool:
@@ -329,3 +349,141 @@ def serialize_o0_batch(freqs: np.ndarray):
     if r < 0:
         return None
     return _split_arena(arena, offs)
+
+
+# ---------------------------------------------------------------------
+# adaptive codecs: arith_dynamic and fqzcomp_qual
+
+def arith_enc(data, order1: bool, rle: bool) -> bytes | None:
+    """arith_dynamic entropy body (max-symbol byte + range-coded
+    stream) of one block; ``rle`` selects the run-model variant."""
+    a = data if isinstance(data, np.ndarray) \
+        else np.frombuffer(bytes(data), np.uint8)
+    nm = f"arith_enc_o{1 if order1 else 0}{'_rle' if rle else ''}"
+    return _coder(nm, a, int(len(a) * 1.1 + 4096), True)
+
+
+def arith_dec(blob, out_sz: int, order1: bool, rle: bool) -> np.ndarray | None:
+    nm = f"arith_dec_o{1 if order1 else 0}{'_rle' if rle else ''}"
+    return _coder(nm, np.frombuffer(bytes(blob), np.uint8), out_sz, False)
+
+
+def _u32(a) -> tuple:
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    return a, a.ctypes.data_as(_u32p)
+
+
+def _fqz_params(gp, packed) -> tuple:
+    """(keep-alive arrays, ctypes arguments) of a parameter set as
+    ``models.fqz._pack_gp`` flattens it."""
+    pm_ints, qmaps, qtabs, ptabs, dtabs, stab = packed
+    st, stp = _u8(stab)
+    keep = [st]
+    ptrs = []
+    for a in (pm_ints, qmaps, qtabs, ptabs, dtabs):
+        arr, ptr = _u32(a)
+        keep.append(arr)
+        ptrs.append(ptr)
+    return keep, (gp.gflags, gp.nparam, gp.max_sel, gp.max_sym, stp, *ptrs)
+
+
+def fqz_enc_scan(data, lens, flags, gp, packed) -> bytes | None:
+    """Range-coded fqz payload (no varint/params header)."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    ln, lnp = _u32(lens)
+    fl, flp = _u32(flags)
+    _keep, gargs = _fqz_params(gp, packed)
+    cap = int(len(a) * 1.1 + 100000)
+    out = np.empty(cap, np.uint8)
+    r = lib.fqz_enc(ap, len(a), lnp, flp, len(ln), *gargs,
+                    out.ctypes.data_as(_u8p), cap)
+    return out[:r].tobytes() if r >= 0 else None
+
+
+def fqz_enc_replay(data, lens, flags, gp, packed):
+    """Model-replay pass: per-event (acc, f, tot) u16 triples in exact
+    stream order (sel/len/rev/dup record events included), no range
+    coder: the input of the ``rc_enc`` kernel (ops/rc_vmem.py).
+    Returns (acc, f, tot) arrays trimmed to the event count, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a, ap = _u8(data)
+    ln, lnp = _u32(lens)
+    fl, flp = _u32(flags)
+    _keep, gargs = _fqz_params(gp, packed)
+    cap_ev = int(len(a) + 7 * len(ln) + 16)
+    acc, f, tot = (np.empty(cap_ev, np.uint16) for _ in range(3))
+    r = lib.fqz_enc_replay(
+        ap, len(a), lnp, flp, len(ln), *gargs,
+        acc.ctypes.data_as(_u16p), f.ctypes.data_as(_u16p),
+        tot.ctypes.data_as(_u16p), cap_ev)
+    if r < 0:
+        return None
+    return acc[:r], f[:r], tot[:r]
+
+
+def fqz_dec_scan(blob, total, gp, packed):
+    """Returns (out u8 array, rec_lens, rec_revs, nrec) or None."""
+    lib = get_lib()
+    a, ap = _u8(np.frombuffer(bytes(blob), dtype=np.uint8))
+    _keep, gargs = _fqz_params(gp, packed)
+    out = np.zeros(total, np.uint8)
+    max_rec = total + 1
+    rec_lens = np.zeros(max_rec, np.uint32)
+    rec_revs = np.zeros(max_rec, np.uint8)
+    r = lib.fqz_dec(ap, len(a), total, *gargs, out.ctypes.data_as(_u8p),
+                    rec_lens.ctypes.data_as(_u32p),
+                    rec_revs.ctypes.data_as(_u8p), max_rec)
+    if r < 0:
+        return None
+    return out, rec_lens, rec_revs, int(r)
+
+
+def fqz_stats1(data: np.ndarray, st: np.ndarray, ls: np.ndarray,
+               d2f: np.ndarray, nrec: int | None = None):
+    """One-pass fqz picker statistics: (pos,sym) histograms (all /
+    read-2), per-segment byte sums, adjacent-duplicate count (real
+    records only: a trailing tail pseudo-segment never dedups).
+    Returns (hb (128,256) i64, h2, sums (nseg,) i64, dedup) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a, ap = _u8(data)
+    nseg = len(st)
+    if nrec is None:
+        nrec = nseg
+    st64 = np.ascontiguousarray(st, np.int64)
+    ls64 = np.ascontiguousarray(ls, np.int64)
+    df, dfp = _u8(d2f)
+    hb = np.empty((128, 256), np.int64)
+    h2 = np.empty((128, 256), np.int64)
+    sums = np.empty(max(nseg, 1), np.int64)
+    dd = np.zeros(1, np.int64)
+    r = lib.fqz_stats1(
+        ap, len(a), st64.ctypes.data_as(_i64p), ls64.ctypes.data_as(_i64p),
+        nseg, nrec, dfp, hb.ctypes.data_as(_i64p), h2.ctypes.data_as(_i64p),
+        sums.ctypes.data_as(_i64p), dd.ctypes.data_as(_i64p))
+    if r < 0:
+        return None
+    return hb, h2, sums[:nseg], int(dd[0])
+
+
+def fqz_stats2(data: np.ndarray, st: np.ndarray, ls: np.ndarray,
+               qb4: np.ndarray):
+    """Selector-bin (pos,sym) histogram: k4 (4,128,256) i64 or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a, ap = _u8(data)
+    st64 = np.ascontiguousarray(st, np.int64)
+    ls64 = np.ascontiguousarray(ls, np.int64)
+    qb, qbp = _u8(qb4)
+    k4 = np.empty((4, 128, 256), np.int64)
+    r = lib.fqz_stats2(
+        ap, len(a), st64.ctypes.data_as(_i64p), ls64.ctypes.data_as(_i64p),
+        len(st), qbp, k4.ctypes.data_as(_i64p))
+    if r < 0:
+        return None
+    return k4

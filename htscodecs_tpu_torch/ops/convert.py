@@ -24,6 +24,22 @@ filled with 12, the codec's fixed precision.  Its stream is plain
 ``(B, W) uint8`` (the bytes after the 16 state bytes), its counts are
 bytes per block.
 
+The adaptive range-coder engines (``ops/arith_vmem.py``,
+``ops/rc_vmem.py``) take what the JAX package's batch functions take
+(numpy blocks, lengths and max-symbol counts; lists of payload byte
+strings; lists of ``(acc, f, tot)`` u16 triples) and read:
+
+- ``model_bank``: the adaptive models' initial state, ``(B, Mc, M+1)``
+  int32 (Mc = M at order 1, 1 at order 0): entry j of a row holds
+  ``symbol << 16 | frequency`` (symbol j, frequency 1 below the block's
+  max-symbol count, else 0), entry M the row's total.  Every context's
+  model starts alike;
+- payloads as a zero-padded ``(B, W)`` uint8 tensor and byte counts;
+- triples as three ``(B, Kp)`` int16 tensors (the bits of the u16
+  values) and event counts;
+- an encoder's ``(bytes (B, cap) uint8, counts (B,) int32)`` come back
+  as the reference's list of payload byte strings.
+
 The tests feed both packages through these functions, so the same
 numpy arrays drive the JAX engines and the port.
 """
@@ -164,3 +180,56 @@ def streams8_to_reference(states: torch.Tensor, stream: torch.Tensor,
     by = stream[:, :cap].contiguous().cpu().numpy()
     st = states.contiguous().cpu().numpy().view(np.uint32)
     return st, by, cn
+
+
+# ---------------------------------------------------------------------------
+# adaptive range coders (arith_dynamic, fqzcomp_qual)
+
+def model_bank(max_syms: torch.Tensor, M: int, order: int) -> torch.Tensor:
+    """Initial SIMPLE_MODEL state of a batch on ``max_syms``'s device.
+
+    max_syms (B,) int32 (1..M each).  Returns (B, M if order else 1,
+    M+1) int32: ``symbol << 16 | frequency`` per entry, the total in the
+    last column."""
+    iota = torch.arange(M, dtype=torch.int32, device=max_syms.device)
+    row = (iota[None, :] < max_syms[:, None]).to(torch.int32) \
+        | (iota << 16)[None, :]
+    row = torch.cat([row, max_syms[:, None].to(torch.int32)], dim=1)
+    Mc = M if order == 1 else 1
+    return row[:, None, :].expand(-1, Mc, -1).contiguous()
+
+
+def payloads_from_reference(streams, device):
+    """List of B payload byte strings -> (stream (B, W) uint8 zero
+    padded, counts (B,) int32) on ``device``; W is at least 1."""
+    B = len(streams)
+    cn = np.array([len(s) for s in streams], np.int32)
+    buf = np.zeros((B, max(int(cn.max()) if B else 0, 1)), np.uint8)
+    for b, s in enumerate(streams):
+        buf[b, :cn[b]] = np.frombuffer(s, np.uint8)
+    return _tensor(buf, device), _tensor(cn, device)
+
+
+def payloads_to_reference(out: torch.Tensor, counts: torch.Tensor):
+    """An encoder's (bytes (B, cap) uint8, counts (B,) int32) -> list of
+    B payload byte strings.  The counts come back first, then only the
+    columns some block uses."""
+    cn = counts.cpu().numpy()
+    cap = int(cn.max()) if len(cn) else 0
+    by = out[:, :cap].contiguous().cpu().numpy()
+    return [by[b, :cn[b]].tobytes() for b in range(len(cn))]
+
+
+def triples_from_reference(triples, device):
+    """List of B ``(acc, f, tot)`` u16 array triples (one entry per
+    coded event) -> (acc, f, tot (B, Kp) int16, counts (B,) int32) on
+    ``device``; rows are zero padded, Kp is at least 1."""
+    B = len(triples)
+    cn = np.array([len(t[0]) for t in triples], np.int32)
+    Kp = max(int(cn.max()) if B else 0, 1)
+    planes = np.zeros((3, B, Kp), np.uint16)
+    for b, tri in enumerate(triples):
+        for k in range(3):
+            planes[k, b, :cn[b]] = tri[k]
+    t = _tensor(planes.view(np.int16), device)
+    return t[0], t[1], t[2], _tensor(cn, device)

@@ -52,10 +52,12 @@ RANS_L = 1 << 15
 _M32 = 0xFFFFFFFF
 
 # launches per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py counts
-# in the same table)
+# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py and the
+# range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py count in
+# the same table)
 LAUNCHES = {"rans16_dec": 0, "sf_fetch": 0, "rans16_enc": 0,
-            "rans16_enc_fused": 0, "rans8_enc": 0, "rans8_dec": 0}
+            "rans16_enc_fused": 0, "rans8_enc": 0, "rans8_dec": 0,
+            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0}
 
 
 def reset_launches() -> None:

@@ -7,6 +7,9 @@ arrays.  ``synth_tables`` builds valid dense rANS tables at a CHOSEN
 precision (10 or 12 bits per block), which the host table build
 cannot be asked for: it picks the precision itself.  ``r8_tables``
 gives the rANS 4x8 tables of a batch as the native table build makes them.
+For the range-coder engines: ``arith_blocks`` (ragged batches over a
+chosen model width), ``synth_fqz_jobs`` (fqzcomp_qual jobs of
+fixed-length records) and two triple generators for ``rc_enc``.
 """
 
 from __future__ import annotations
@@ -111,3 +114,74 @@ def r8_tables(blocks: np.ndarray, order: int):
         else:
             packed[b, :a] = pk
     return alpha, packed
+
+
+def arith_blocks(n_blocks: int, n: int, width: int, seed: int):
+    """A ragged batch for the arith_dynamic engine: (blocks (B, n) u8
+    over ``width`` symbols, skewed so that the model's order matters;
+    lens (B,) i32, the second block 7 bytes short; max_syms (B,) i32 =
+    max symbol + 1 of each block's coded prefix).  ``width`` 256 gives
+    blocks that hold byte 255."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, width, (n_blocks, n)).astype(np.int64)
+    blocks = (v * v // max(width // 3, 1) % width).astype(np.uint8)
+    blocks[:, 0] = width - 1
+    lens = np.full(n_blocks, n, np.int32)
+    lens[1 % n_blocks] = max(n - 7, 1)
+    ms = np.array([int(blocks[b, :lens[b]].max()) + 1
+                   for b in range(n_blocks)], np.int32)
+    return blocks, lens, ms
+
+
+def synth_fqz_jobs(n_jobs: int, n_rec: int, rec_len: int, seed: int = 42):
+    """fqzcomp_qual jobs as ``models.fqz.compress`` takes them: a list
+    of (data (n_rec * rec_len,) u8, lens, flags) with ``n_rec`` records
+    of ``rec_len`` values each.  The values are ``synth_quality``'s
+    (four symbols in geometric runs), drawn to the full length: no
+    record repeats its predecessor, so every value is a coded event."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([2, 12, 23, 37], np.uint8) + 33
+    n = n_rec * rec_len
+    m = n // 3 + 64
+    jobs = []
+    for _ in range(n_jobs):
+        vals = rng.choice(4, size=m, p=[0.05, 0.10, 0.15, 0.70])
+        lens = rng.geometric(0.25, size=m).clip(1, 60)
+        seq = np.repeat(vals, lens)
+        while len(seq) < n:             # ~1.3 n expected: all but never
+            seq = np.concatenate([seq, seq])
+        jobs.append((syms[seq[:n]], [rec_len] * n_rec, [0] * n_rec))
+    return jobs
+
+
+def _u16_triple(rows):
+    a = np.asarray(rows, np.uint16).reshape(-1, 3)
+    return a[:, 0].copy(), a[:, 1].copy(), a[:, 2].copy()
+
+
+def ff_run_triples(reps: int):
+    """One block's (acc, f, tot) u16 triples that drive the range coder
+    through both kinds of deferred run: four events after which a carry
+    resolves a run of two pending bytes (they come out as 0x00), then
+    ``reps`` events that code the top 1/256 of the range each, which
+    defers a run of about ``reps`` bytes of 0xFF, then one event that
+    ends it."""
+    return _u16_triple([(255, 1, 257), (255, 1, 257), (1020, 4, 1024),
+                        (254, 2, 256)] + [(255, 1, 256)] * reps
+                       + [(1, 1, 2)])
+
+
+def random_triples(n_blocks: int, n: int, seed: int):
+    """Ragged random valid triples (acc + f <= tot, f >= 1): a list of
+    ``n_blocks`` (acc, f, tot) u16 array triples, block b three events
+    shorter than block b - 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_blocks):
+        k = max(n - 3 * b, 1)
+        tot = rng.integers(2, 65536, k)
+        f = (rng.random(k) * (tot - 1)).astype(np.int64) + 1
+        acc = (rng.random(k) * (tot - f + 1)).astype(np.int64)
+        out.append((acc.astype(np.uint16), f.astype(np.uint16),
+                    tot.astype(np.uint16)))
+    return out

@@ -1,0 +1,283 @@
+"""The port's batched arith_dynamic engine (ops/arith_vmem.py, plain
+versions on device="cpu") against the JAX package's device functions
+(ops/arith_jax.py; ops/arith_vmem.py in interpret mode) on the same
+numpy inputs, and against the host coders where the JAX functions
+return None.  Integer codecs: every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from htscodecs_tpu import native as ref_native
+from htscodecs_tpu.ops import arith_jax as ref_jax
+from htscodecs_tpu.ops import arith_vmem as ref_vmem
+from htscodecs_tpu_torch import native as port_native
+from htscodecs_tpu_torch.ops import arith_vmem as port
+from htscodecs_tpu_torch.ops import convert
+from htscodecs_tpu_torch.ops.range_coder import (MAX_FREQ, STEP, RangeEncoder,
+                                                 SimpleModel)
+from htscodecs_tpu_torch.utils import testdata
+
+pytestmark = pytest.mark.skipif(
+    not (ref_native.available() and port_native.available()),
+    reason="native host kernels unavailable")
+
+
+def _mkdata(rng, n, a, runs):
+    """tests/test_arith_jax.py's generator."""
+    if runs:
+        v = rng.choice(a, size=n // 2 + 1)
+        ln = rng.geometric(0.3, size=n // 2 + 1).clip(1, 20)
+        d = np.repeat(v, ln)[:n]
+        if len(d) < n:
+            d = np.pad(d, (0, n - len(d)))
+    else:
+        d = rng.integers(0, a, n)
+    return (d + 33).astype(np.uint8)
+
+
+def _normalising(B, N):
+    """One symbol repeated past 4096 times: the model's total reaches
+    MAX_FREQ and every entry is halved, at order 1 too (one context
+    sees nearly all of the block)."""
+    blocks = np.full((B, N), 7, np.uint8)
+    blocks[:, ::97] = 3
+    return blocks, np.array([N] + [N - 7] * (B - 1), np.int32), \
+        np.full(B, 8, np.int32)
+
+
+def _host_payload(block, order):
+    """The host coder's payload (after the max-symbol byte)."""
+    return port_native.arith_enc(block, order == 1, False)[1:]
+
+
+# ---------------------------------------------------------------------------
+# against arith_jax.enc_batch / dec_batch
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("n,a,runs", [(64, 3, False), (257, 9, False),
+                                      (1000, 40, True)])
+def test_enc_dec_equal_the_xla_engine(order, n, a, runs):
+    rng = np.random.default_rng(23 + n)
+    B = 3
+    blocks = np.stack([_mkdata(rng, n, a, runs) for _ in range(B)])
+    ms = blocks.max(axis=1).astype(np.int32) + 1
+    lens = np.full(B, n, np.int32)
+    want = ref_jax.enc_batch(blocks, lens, ms, order)
+    got = port.enc_batch(blocks, lens, ms, order, device="cpu")
+    assert got == want
+    dec = port.dec_batch(got, [n] * B, list(ms), order, device="cpu")
+    np.testing.assert_array_equal(dec, blocks)
+    np.testing.assert_array_equal(
+        dec, ref_jax.dec_batch(got, [n] * B, list(ms), order)[:, :n])
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("B,N,A", [(128, 100, 6), (130, 64, 40)])
+def test_ragged_lens_equal_the_xla_engine(B, N, A, order):
+    """tests/test_arith_vmem.py's shapes and ragged lengths."""
+    rng = np.random.default_rng(3)
+    blocks = rng.integers(0, A, (B, N)).astype(np.uint8)
+    blocks = (blocks * blocks // max(A // 3, 1) % A).astype(np.uint8)
+    lens = np.full(B, N, np.int32)
+    lens[1] = N - 7
+    ms = blocks.max(axis=1).astype(np.int32) + 1
+    want = ref_jax.enc_batch(blocks, lens, ms, order)
+    got = port.enc_batch(blocks, lens, ms, order, device="cpu")
+    assert got == want
+    dec = port.dec_batch(got, lens.tolist(), ms.tolist(), order, device="cpu")
+    for b in range(B):
+        np.testing.assert_array_equal(dec[b, :lens[b]], blocks[b, :lens[b]])
+    assert not dec[1, lens[1]:].any()       # past a block's length: zeros
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_normalising_input(order):
+    blocks, lens, ms = _normalising(2, 4200)
+    got = port.enc_batch(blocks, lens, ms, order, device="cpu")
+    assert got == ref_jax.enc_batch(blocks, lens, ms, order)
+    assert got == [_host_payload(blocks[b, :lens[b]], order) for b in range(2)]
+    dec = port.dec_batch(got, lens.tolist(), ms.tolist(), order, device="cpu")
+    for b in range(2):
+        np.testing.assert_array_equal(dec[b, :lens[b]], blocks[b, :lens[b]])
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_truncated_streams_decode_as_the_jax_device_functions(order):
+    """A stream cut short is invalid input: the host coder stops reading
+    at its end, the JAX device functions read zeros past it.  The port
+    follows the device functions."""
+    blocks, lens, ms = testdata.arith_blocks(4, 300, 40, seed=7)
+    full = port.enc_batch(blocks, lens, ms, order, device="cpu")
+    cut = [s[:-6] for s in full[:3]] + [full[3][:4]]    # the last: under 6
+    got = port.dec_batch(cut, lens.tolist(), ms.tolist(), order, device="cpu")
+    want = ref_jax.dec_batch(cut, lens.tolist(), ms.tolist(), order)
+    for b in range(4):
+        np.testing.assert_array_equal(got[b, :lens[b]], want[b, :lens[b]])
+    assert not got[3].any()                 # decodes nothing: zeros
+    host = port_native.arith_dec(bytes([ms[0]]) + cut[0], int(lens[0]),
+                                 order == 1, False)
+    assert not np.array_equal(host, got[0]), \
+        "the host coder and the device functions agree here: pick another cut"
+
+
+# ---------------------------------------------------------------------------
+# against the Pallas kernels in interpret mode, at their smallest shape
+
+@pytest.fixture
+def short_unroll(monkeypatch):
+    """The Pallas kernels unroll PER_A = 32 byte steps per grid step; in
+    interpret mode on the CPU that compiles for many minutes.  Four
+    steps per grid step run the same arithmetic per byte.  N = 40 is no
+    multiple of 32, so no compiled kernel of the JAX package's own tests
+    has these shapes."""
+    monkeypatch.setattr(ref_vmem, "PER_A", 4)
+
+
+def test_enc_equals_the_pallas_kernel(short_unroll):
+    blocks, lens, ms = testdata.arith_blocks(5, 40, 6, seed=3)
+    want = ref_vmem.enc_batch(blocks, lens, ms, 0, interpret=True)
+    assert want is not None
+    assert port.enc_batch(blocks, lens, ms, 0, device="cpu") == want
+
+
+def test_dec_equals_the_pallas_kernel(short_unroll):
+    blocks, lens, ms = testdata.arith_blocks(5, 40, 6, seed=5)
+    enc = port.enc_batch(blocks, lens, ms, 0, device="cpu")
+    want = ref_vmem.dec_batch(enc, lens.tolist(), ms.tolist(), 0,
+                              interpret=True)
+    got = port.dec_batch(enc, lens.tolist(), ms.tolist(), 0, device="cpu")
+    for b in range(5):
+        np.testing.assert_array_equal(got[b, :lens[b]], want[b, :lens[b]])
+        np.testing.assert_array_equal(got[b, :lens[b]], blocks[b, :lens[b]])
+
+
+# ---------------------------------------------------------------------------
+# where the JAX device functions return None: against the host coders
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("width", [97, 256])
+def test_wide_models_equal_the_host_coder(width, order):
+    blocks, lens, ms = testdata.arith_blocks(3, 400, width, seed=width)
+    assert int(ms.max()) == width
+    assert ref_jax.enc_batch(blocks, lens, ms, order) is None
+    got = port.enc_batch(blocks, lens, ms, order, device="cpu")
+    assert got == [_host_payload(blocks[b, :lens[b]], order) for b in range(3)]
+    dec = port.dec_batch(got, lens.tolist(), ms.tolist(), order, device="cpu")
+    for b in range(3):
+        np.testing.assert_array_equal(dec[b, :lens[b]], blocks[b, :lens[b]])
+
+
+def test_max_syms_outside_the_model_are_refused():
+    blocks = np.zeros((2, 16), np.uint8)
+    lens = np.full(2, 16, np.int32)
+    for ms in ([0, 1], [1, 257]):
+        with pytest.raises(ValueError, match="max_syms"):
+            port.enc_batch(blocks, lens, np.array(ms, np.int32), 0,
+                           device="cpu")
+        with pytest.raises(ValueError, match="max_syms"):
+            port.dec_batch([bytes(8)] * 2, [16, 16], ms, 0, device="cpu")
+
+
+def test_empty_batches():
+    assert port.enc_batch(np.zeros((0, 8), np.uint8), [], [], 0,
+                          device="cpu") == []
+    assert port.dec_batch([], [], [], 1, device="cpu").shape == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# mutations that these inputs must tell apart
+
+class _SwapFirstModel(SimpleModel):
+    """The mutation: bubble swap BEFORE the halving normalisation."""
+
+    def encode(self, rc, sym):
+        p = self.syms.index(sym)
+        rc.encode(sum(self.freqs[:p]), self.freqs[p], self.total)
+        self.freqs[p] += STEP
+        self.total += STEP
+        if p and self.freqs[p] > self.freqs[p - 1]:
+            self.syms[p], self.syms[p - 1] = self.syms[p - 1], self.syms[p]
+            self.freqs[p], self.freqs[p - 1] = \
+                self.freqs[p - 1], self.freqs[p]
+        if self.total > MAX_FREQ:
+            self._normalize()
+
+
+class _CarryRunEncoder(RangeEncoder):
+    """The mutation: the deferred bytes take ``carry``, not
+    ``carry - 1``."""
+
+    def _shift_low(self):
+        if self.low < 0xFF000000 or self.carry:
+            self.out.append((self.cache + self.carry) & 0xFF)
+            self.out.extend([self.carry & 0xFF] * self.ffnum)
+            self.ffnum = 0
+            self.cache = self.low >> 24
+            self.carry = 0
+        else:
+            self.ffnum += 1
+        self.low = (self.low << 8) & 0xFFFFFFFF
+
+
+def _oracle(block, ms, model_cls, coder_cls):
+    model, rc = model_cls(256, ms), coder_cls()
+    for s in block.tolist():
+        model.encode(rc, s)
+    return rc.finish()
+
+
+def _swap_sensitive_block():
+    """A two-symbol block on which the order of halving and swapping
+    shows.  It shows only where the coded entry leads its neighbour by
+    exactly 1 and is even when the total passes MAX_FREQ, and the
+    frequencies stay congruent to 1 modulo 16, 8, 4, 2 until the fourth
+    halving: so the block is long.  Always coding the symbol in second
+    place brings the two frequencies level; six of each then hit the
+    seventh halving with the lead at 1."""
+    model, head = SimpleModel(256, 2), []
+    for _ in range(16370):
+        head.append(model.syms[1])
+        model.encode(RangeEncoder(), head[-1])
+    return np.array(head + [0] * 6 + [1] * 6 + [0, 1] * 100, np.uint8)
+
+
+def test_swap_before_normalise_would_be_caught():
+    blk = _swap_sensitive_block()
+    right = _oracle(blk, 2, SimpleModel, RangeEncoder)
+    assert right != _oracle(blk, 2, _SwapFirstModel, RangeEncoder), \
+        "this block does not tell the two orders apart"
+    got = port.enc_batch(blk[None, :], [len(blk)], [2], 0, device="cpu")[0]
+    assert got == right == _host_payload(blk, 0)
+
+
+def test_run_byte_of_carry_would_be_caught():
+    """Wide random data defers bytes now and then (the low word's top
+    byte is 0xFF about once in 256 shifts)."""
+    blocks, lens, ms = testdata.arith_blocks(1, 3000, 256, seed=2)
+    blk = blocks[0, :lens[0]]
+    right = _oracle(blk, 256, SimpleModel, RangeEncoder)
+    assert right != _oracle(blk, 256, SimpleModel, _CarryRunEncoder), \
+        "this block defers no byte: pick another seed"
+    assert port.enc_batch(blocks, lens, ms, 0, device="cpu")[0] == right
+
+
+# ---------------------------------------------------------------------------
+# the tensor-level wrappers
+
+def test_wrappers_take_the_plain_versions_on_cpu_tensors():
+    blocks, lens, ms = testdata.arith_blocks(5, 33, 6, seed=1)
+    bt, lt, mt = (torch.from_numpy(x) for x in (blocks, lens, ms))
+    M = int(ms.max())
+    by, cn = port.arith_enc(bt, lt, mt, M, 1)
+    assert by.shape == (5, 2 * 33 + 8) and by.dtype == torch.uint8
+    assert convert.payloads_to_reference(by, cn) == \
+        ref_jax.enc_batch(blocks, lens, ms, 1)
+    out = port.arith_dec(by[:, :int(cn.max())].contiguous(), cn, lt, mt, M,
+                         33, 1)
+    for b in range(5):
+        assert out[b, :lens[b]].tolist() == blocks[b, :lens[b]].tolist()
+    with pytest.raises(ValueError):
+        port.arith_enc(bt, lt, mt, 257, 0)
+    with pytest.raises(ValueError):
+        port.arith_enc(bt, lt.to(torch.int64), mt, M, 0)

@@ -107,3 +107,50 @@ def test_streams8_round_trip():
     np.testing.assert_array_equal(b2, stream[:, :W])
     _st, _by, cn = convert.streams8_from_reference(states, stream, "cpu")
     assert cn.tolist() == [W] * B
+
+
+# ---------------------------------------------------------------------------
+# adaptive range coders
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_model_bank_is_the_jax_engines_initial_state(order):
+    """arith_jax.enc_batch starts every model at frequencies
+    ``iota < max_sym`` and symbols ``iota``; the bank packs the same
+    state as symbol << 16 | frequency with the total appended."""
+    ms = np.array([1, 5, 9], np.int32)
+    M = 9
+    bank = convert.model_bank(torch.from_numpy(ms), M, order)
+    assert bank.dtype == torch.int32
+    assert bank.shape == (3, M if order else 1, M + 1)
+    iota = np.arange(M)
+    f0 = (iota[None, :] < ms[:, None]).astype(np.int32)
+    for c in range(bank.shape[1]):
+        row = bank[:, c].numpy()
+        np.testing.assert_array_equal(row[:, :M] & 0xFFFF, f0)
+        np.testing.assert_array_equal(row[:, :M] >> 16,
+                                      np.broadcast_to(iota, (3, M)))
+        np.testing.assert_array_equal(row[:, M], f0.sum(axis=1))
+
+
+def test_payloads_there_and_back():
+    streams = [b"abc", b"", bytes(range(200, 256))]
+    st, cn = convert.payloads_from_reference(streams, "cpu")
+    assert st.dtype == torch.uint8 and st.shape == (3, 56)
+    assert cn.tolist() == [3, 0, 56]
+    assert not st[0, 3:].any()
+    assert convert.payloads_to_reference(st, cn) == streams
+    st, cn = convert.payloads_from_reference([b""], "cpu")
+    assert st.shape == (1, 1) and cn.tolist() == [0]
+
+
+def test_triples_keep_the_u16_bits():
+    acc = np.array([0, 40000, 65535], np.uint16)
+    f = np.array([1, 2, 3], np.uint16)
+    tot = np.array([65535, 50000, 4], np.uint16)
+    a, ff, t, cn = convert.triples_from_reference(
+        [(acc, f, tot), (acc[:1], f[:1], tot[:1])], "cpu")
+    assert a.dtype == torch.int16 and a.shape == (2, 3)
+    assert cn.tolist() == [3, 1]
+    np.testing.assert_array_equal(a[0].numpy().view(np.uint16), acc)
+    np.testing.assert_array_equal(t[0].numpy().view(np.uint16), tot)
+    assert a[1].tolist() == [0, 0, 0] and int(t[1, 0]) == -1

@@ -35,16 +35,27 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert r.returncode == 0, r.stderr
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("MODULES")][0]
     assert line.endswith("BAD []"), line
-    assert int(line.split()[1]) >= 16, line
+    assert int(line.split()[1]) >= 21, line
+
+
+def _walked():
+    import pkgutil
+    import htscodecs_tpu_torch as pkg
+    return {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                  pkg.__name__ + ".")}
 
 
 def test_import_walk_reaches_the_rans4x8_modules():
-    import pkgutil
-    import htscodecs_tpu_torch as pkg
-    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
-                                                   pkg.__name__ + ".")}
+    names = _walked()
     for mod in ("ops.rans8_core", "ops.rans8_v2", "ops.rans8_vmem",
                 "models.rans4x8", "ops.convert", "models.batch"):
+        assert f"htscodecs_tpu_torch.{mod}" in names
+
+
+def test_import_walk_reaches_the_range_coder_modules():
+    names = _walked()
+    for mod in ("ops.range_coder", "ops.arith_vmem", "ops.rc_vmem",
+                "models.arith", "models.fqz"):
         assert f"htscodecs_tpu_torch.{mod}" in names
 
 
@@ -70,17 +81,35 @@ def test_forbidden_pattern_catches_what_it_should():
 
 @pytest.mark.parametrize("entry", ["compress", "uncompress", "enc", "dec",
                                    "r4x8_compress", "r4x8_uncompress",
-                                   "enc8", "dec8"])
+                                   "enc8", "dec8",
+                                   "arith_compress", "arith_uncompress",
+                                   "fqz_compress", "arith_enc_batch",
+                                   "arith_dec_batch", "enc_triples_batch"])
 def test_default_device_without_a_card_raises(entry):
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from htscodecs_tpu_torch.models import batch
-    from htscodecs_tpu_torch.ops import rans8_v2, rans_v2
+    from htscodecs_tpu_torch.ops import arith_vmem, rans8_v2, rans_v2, rc_vmem
     blocks = [np.zeros(64, np.uint8)] * 20
     z = np.zeros((2, 4), np.uint32)
+    u16 = np.ones(8, np.uint16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "compress":
+        if entry == "arith_compress":
+            batch.arith_compress_blocks(blocks, 1, engine="device")
+        elif entry == "arith_uncompress":
+            batch.arith_uncompress_blocks([b"\x00\x40\x01" + bytes(8)])
+        elif entry == "fqz_compress":
+            batch.fqz_compress_blocks([(np.zeros(64, np.uint8), [64])],
+                                      engine="device")
+        elif entry == "arith_enc_batch":
+            arith_vmem.enc_batch(np.zeros((2, 64), np.uint8), [64, 64],
+                                 [1, 1], 0)
+        elif entry == "arith_dec_batch":
+            arith_vmem.dec_batch([bytes(8)] * 2, [64, 64], [1, 1], 0)
+        elif entry == "enc_triples_batch":
+            rc_vmem.enc_triples_batch([(u16, u16, u16)])
+        elif entry == "compress":
             batch.compress_blocks(blocks, 1, engine="device")
         elif entry == "uncompress":
             batch.uncompress_blocks([b"\x00\x01a"])
@@ -109,10 +138,12 @@ def test_default_device_without_a_card_raises(entry):
 def test_cuda_tensor_never_takes_the_plain_version():
     """The wrappers pick the plain version by the tensor's device only."""
     import inspect
-    from htscodecs_tpu_torch.ops import rans8_vmem, rans_vmem
+    from htscodecs_tpu_torch.ops import (arith_vmem, rans8_vmem, rans_vmem,
+                                         rc_vmem)
     for fn in (rans_vmem.rans16_dec, rans_vmem.sf_fetch,
                rans_vmem.rans16_enc, rans_vmem.rans16_enc_fused,
-               rans8_vmem.rans8_enc, rans8_vmem.rans8_dec):
+               rans8_vmem.rans8_enc, rans8_vmem.rans8_dec,
+               arith_vmem.arith_enc, arith_vmem.arith_dec, rc_vmem.rc_enc):
         src = inspect.getsource(fn)
         assert 'dev.type == "cpu"' in src
         assert "try:" not in src and "except" not in src

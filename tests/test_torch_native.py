@@ -100,3 +100,54 @@ def test_serialize_o1_dense_batch():
             fr[b, c, :6] = f
     _same(port.serialize_o1_dense_batch(alphas, asz, fr, shifts),
           ref.serialize_o1_dense_batch(alphas, asz, fr, shifts))
+
+
+# ---------------------------------------------------------------------------
+# the adaptive codecs' bindings
+
+@pytest.mark.parametrize("blk", BLOCKS[:4], ids=IDS[:4])
+@pytest.mark.parametrize("order1", [False, True])
+@pytest.mark.parametrize("rle", [False, True])
+def test_arith_enc_dec(blk, order1, rle):
+    s = port.arith_enc(blk, order1, rle)
+    assert s == ref.arith_enc(blk, order1, rle)
+    np.testing.assert_array_equal(port.arith_dec(s, len(blk), order1, rle),
+                                  blk)
+    np.testing.assert_array_equal(ref.arith_dec(s, len(blk), order1, rle),
+                                  blk)
+
+
+def _fqz_case():
+    from htscodecs_tpu.models import fqz
+    rng = np.random.default_rng(31)
+    lens = [40] * 24
+    data = rng.integers(30, 42, 40 * 24).astype(np.uint8)
+    data[40:80] = data[0:40]
+    flags = [128 if i & 1 else 0 for i in range(24)]
+    gp = fqz.pick_parameters(4, 0, lens, flags, data.copy())
+    return (data, np.asarray(lens, np.uint32), np.asarray(flags, np.uint32),
+            gp, fqz._pack_gp(gp))
+
+
+def test_fqz_enc_scan_replay_and_dec_scan():
+    args = _fqz_case()
+    payload = port.fqz_enc_scan(*args)
+    assert payload == ref.fqz_enc_scan(*args)
+    _same(port.fqz_enc_replay(*args), ref.fqz_enc_replay(*args))
+    _same(port.fqz_dec_scan(payload, len(args[0]), args[3], args[4]),
+          ref.fqz_dec_scan(payload, len(args[0]), args[3], args[4]))
+    np.testing.assert_array_equal(
+        port.fqz_dec_scan(payload, len(args[0]), args[3], args[4])[0], args[0])
+
+
+def test_fqz_stats():
+    data = _fqz_case()[0]
+    st = np.arange(0, 24 * 40, 40, dtype=np.int64)
+    ls = np.full(24, 40, np.int64)
+    d2f = (np.arange(24) & 1).astype(np.uint8)
+    _same(port.fqz_stats1(data, st, ls, d2f), ref.fqz_stats1(data, st, ls, d2f))
+    _same(port.fqz_stats1(data, st, ls, d2f, nrec=23),
+          ref.fqz_stats1(data, st, ls, d2f, nrec=23))
+    qb4 = (np.arange(24) % 4).astype(np.uint8)
+    np.testing.assert_array_equal(port.fqz_stats2(data, st, ls, qb4),
+                                  ref.fqz_stats2(data, st, ls, qb4))
