@@ -9,19 +9,31 @@ What it does, in order (any failure exits non-zero):
 1. prints the device and builds the host C library and the CUDA kernel
    library from the sources in this checkout;
 2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc,
-   rans16_enc_fused, rans8_enc, rans8_dec, arith_enc, arith_dec, rc_enc)
-   against its plain PyTorch version on the card — integer codecs, so
-   the tolerance is 0 — over ragged batch sizes, block lengths with
-   every tail, four alphabet buckets, both orders, 10/12/mixed table
-   precision (4x16) and truncated and garbage streams; rans16_enc_fused
-   is also held against the sf_fetch + rans16_enc pair; the range-coder
-   kernels run over model widths 2..256, ragged lengths, a normalising
-   input, deferred-byte runs and triples replayed from fqz jobs;
+   rans16_enc_fused, rans8_enc, rans8_dec, arith_enc, arith_dec, rc_enc,
+   rans16_dec_packed, rans16_enc_packed) against its plain PyTorch
+   version on the card — integer codecs, so the tolerance is 0 — over
+   ragged batch sizes, block lengths with every tail, four alphabet
+   buckets, both orders, 10/12/mixed table precision (4x16) and
+   truncated and garbage streams; rans16_enc_fused is also held against
+   the sf_fetch + rans16_enc pair, and the two packed-row kernels
+   against rans16_enc / rans16_dec on the same tables (holes
+   included); the range-coder kernels run over model widths 2..256,
+   ragged lengths, a normalising input, deferred-byte runs and triples
+   replayed from fqz jobs;
 3. drives the main paths at full width through the entry points a user
    calls, the launch counts set to 0 just before each and read just
    after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
    (rANS 4x16) on B = 4096 blocks of 64 KiB of 4-symbol quality data at
-   order 1, the same at order 0, and a wide-alphabet batch; then
+   order 1, the same at order 0, and a wide-alphabet batch, each taking
+   the device-table route (``batch.TABLE_ROUTES`` shows it; the number
+   of order-1 blocks in the shift band and of host rebuilds is
+   printed); the synth4 batches four more times, through the device-
+   and the host-table route in turns (``TABLES_DEVICE_MIN`` above B for
+   the host route), whose streams must equal the main path's; the
+   ``rans_pallas`` path (``tables_v2.build_o*_device``,
+   one ``enc_o*_batch`` / ``dec_o*_batch`` call per shift group, equal
+   to ``rans_v2``'s encode block for block, one launch of the packed
+   kernel per call and none of any other) at both orders; then
    ``batch.r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` (rANS
    4x8) on the same three batches; then the 4x16 order-1 batch once
    more under ``set_enc_variant(row_fetch="vmem")``; then
@@ -39,8 +51,11 @@ What it does, in order (any failure exits non-zero):
    events, warm, median of 5) beside its roofline bound, its plain
    version (one run; the range-coder kernels' plain versions at a
    length cut to 8192) and, for sf_fetch, ``torch.gather``; times the
-   two 4x16 encode variants whole, tensor preparation included, and the
-   arith kernels at 1 to 32 threads per CTA.
+   two 4x16 encode variants whole, tensor preparation included, then
+   those two and the packed encode on the rans_pallas path's largest
+   shift group, the device table build, and the arith kernels at 1 to
+   32 threads per CTA; prints the compress wall of both table routes,
+   at B and at group sizes 4 to 1024 around ``TABLES_DEVICE_MIN``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -69,7 +84,8 @@ from htscodecs_tpu_torch import cuda_build, native  # noqa: E402
 from htscodecs_tpu_torch.models import (arith, batch, fqz,  # noqa: E402
                                         rans4x8, rans4x16)
 from htscodecs_tpu_torch.ops import (arith_vmem, convert,  # noqa: E402
-                                     rans8_vmem, rans_v2, rans_vmem, rc_vmem)
+                                     rans8_vmem, rans_pallas, rans_v2,
+                                     rans_vmem, rc_vmem, tables_v2)
 from htscodecs_tpu_torch.utils import testdata  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -300,6 +316,73 @@ def phase_kernels_rc(quick: bool) -> int:
     return n
 
 
+def check_case_packed(blocks, sv, order, label, garbage=False) -> None:
+    """The two packed-row kernels on one case (tables at one precision,
+    holes included), against their plain versions and against the
+    rans_v2 engine's kernels (rans16_enc via sf_fetch, rans16_dec) on
+    the same tables."""
+    B, N = blocks.shape
+    alpha, packed, A = testdata.synth_tables(blocks, sv, order)
+    bt = torch.from_numpy(blocks).to(DEV)
+    al = torch.from_numpy(alpha).to(DEV)
+    pk = torch.from_numpy(packed.reshape(B, -1)).to(DEV)
+    enc_k = rans_pallas.rans16_enc_packed(bt, al, pk, sv, order)
+    enc_p = rans_pallas._rans16_enc_packed_plain(bt, al, pk, sv, order)
+    tables = convert.tables_from_packed(al, pk.view(packed.shape), sv)
+    enc_v2 = rans_vmem.enc_batch(bt, tables, order)
+    torch.cuda.synchronize()
+    if not same_streams(enc_k, enc_p):
+        fail(f"rans16_enc_packed != plain at {label}")
+    if not same_streams(enc_k, enc_v2):
+        fail(f"rans16_enc_packed != sf_fetch + rans16_enc at {label}")
+
+    st_k, wd_k, cn_k = enc_k
+    W = max(int(cn_k.max()), 1)
+    words = wd_k[:, :W].contiguous()
+    variants = [("", st_k, words)]
+    if garbage:
+        # truncated words (reads past the row give 0) and arbitrary
+        # states with bit 31 set
+        variants += [(" truncated", st_k, words[:, :max(W // 2, 1)].contiguous()),
+                     (" garbage", garbage_states(B, N), words)]
+    for tag, st, wd in variants:
+        out_k = rans_pallas.rans16_dec_packed(st, wd, pk, al, sv, N, order)
+        out_p = rans_pallas._rans16_dec_packed_plain(st, wd, pk, al, sv, N,
+                                                     order)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            fail(f"rans16_dec_packed != plain at {label}{tag}")
+        if not tag:
+            if not torch.equal(out_k, bt):
+                fail(f"rans16_dec_packed did not return the input at {label}")
+            out_v2 = rans_vmem.rans16_dec(st, wd, cn_k, tables, N, order)
+            if not torch.equal(out_k, out_v2):
+                fail(f"rans16_dec_packed != rans16_dec at {label}")
+
+
+def phase_kernels_packed(quick: bool) -> int:
+    """The comparison grid of the two packed-row kernels: ragged B, N
+    with tails 1, 3, 2 (and 0 at 4096), alphabet buckets 4, 48, 96 (16
+    at 4096), both orders, shift 10 and 12; synth_tables leaves a hole
+    (freq 0) for every pair a block does not contain."""
+    Bs, Ns, nsyms = (1, 5, 130, 512), (33, 511, 514), (3, 40, 90)
+    if quick:
+        Bs, Ns, nsyms = (5, 130), (33, 514), (3, 40)
+    cases = [(B, N, nsym) for B in Bs for N in Ns for nsym in nsyms]
+    cases.append((130, 4096, 14))
+    n = 0
+    for B, N, nsym in cases:
+        blocks = testdata.synth_wide(B, N, nsym, seed=B * 100003 + N * 13 + nsym + 1)
+        for order in (0, 1):
+            for sv in (10, 12):
+                check_case_packed(blocks, sv, order,
+                                  f"packed B={B} N={N} nsym={nsym} "
+                                  f"order={order} shift={sv}",
+                                  garbage=(N == 514))
+                n += 1
+    return n
+
+
 def phase_kernels(quick: bool) -> int:
     """The comparison grid.  The plain versions are bound by the host's
     launch rate (time ~ steps, whatever B), so the longest length runs
@@ -357,13 +440,22 @@ ARITH = Codec("arith", batch.arith_compress_blocks,
               ("arith_enc", "arith_dec"))
 
 
+def reset_routes() -> None:
+    for k in batch.TABLE_ROUTES:
+        batch.TABLE_ROUTES[k] = 0
+
+
 def run_main_path(codec, name, blocks, order, sample):
     """compress -> uncompress with the defaults; returns the launch
-    counts of the run and the streams, prints wall seconds and MB/s."""
+    counts of the run and the streams, prints wall seconds and MB/s.
+    For the rANS 4x16 codec, checks that the batch took the table
+    route its size calls for (device tables from TABLES_DEVICE_MIN
+    blocks up)."""
     B, N = blocks.shape
     mb = B * N / 1e6
     name = f"{codec.name} {name}"
     rans_vmem.reset_launches()
+    reset_routes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = codec.compress(blocks, order=order)
@@ -373,12 +465,19 @@ def run_main_path(codec, name, blocks, order, sample):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(rans_vmem.LAUNCHES)
+    routes = dict(batch.TABLE_ROUTES)
 
     csize = sum(len(s) for s in streams)
     log(f"main path {name}: B={B} N={N} order={order} "
         f"compress {t1 - t0:.3f} s ({mb / (t1 - t0):.1f} MB/s) "
         f"uncompress {t2 - t1:.3f} s ({mb / (t2 - t1):.1f} MB/s) "
-        f"ratio {csize / (B * N):.4f} launches {launches}")
+        f"ratio {csize / (B * N):.4f} launches {launches} "
+        f"table routes {routes}")
+    if codec in (R4X16, R4X16_VMEM):
+        want = "device" if B >= batch.TABLES_DEVICE_MIN else "host"
+        other = "host" if want == "device" else "device"
+        if routes[want] < 1 or routes[other]:
+            fail(f"{name}: expected the {want}-table route, got {routes}")
     for b in range(B):
         if outs[b] != blocks[b].tobytes():
             fail(f"{name}: block {b} did not round-trip")
@@ -439,6 +538,171 @@ def run_fqz_path(jobs, sample):
         f"sampled streams byte-identical to the host coder "
         f"({time.perf_counter() - t:.1f} s of host coding)")
     return launches
+
+
+def run_table_routes(blocks, order, streams_want, name, engine="auto",
+                     quiet=False):
+    """compress_blocks on a batch through both table routes in turns
+    (device, host, host, device; TABLES_DEVICE_MIN set to B for the
+    device route and above B for the host route), warm: each run must
+    take its route and give ``streams_want`` (the first run's streams
+    when None), block for block.  Returns the compress walls by route."""
+    B, N = blocks.shape
+    keep = batch.TABLES_DEVICE_MIN
+    walls = {"device": [], "host": []}
+    for route in ("device", "host", "host", "device"):
+        batch.TABLES_DEVICE_MIN = B if route == "device" else B + 1
+        reset_routes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = batch.compress_blocks(blocks, order=order, engine=engine)
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+        batch.TABLES_DEVICE_MIN = keep
+        routes = dict(batch.TABLE_ROUTES)
+        other = "host" if route == "device" else "device"
+        if routes[route] < 1 or routes[other]:
+            fail(f"{name}: expected the {route}-table route, got {routes}")
+        if streams_want is None:
+            streams_want = streams
+        if streams != streams_want:
+            fail(f"{name}: the {route}-table route's streams differ")
+    if not quiet:
+        log(f"table routes {name}, compress wall in turns (device, host, "
+            f"host, device), s: {walls}; all {B} streams byte-identical "
+            "each time")
+    return walls
+
+
+SWEEP_B = (4, 16, 64, 128, 256, 512, 1024)
+
+
+def table_route_sweep(blocks):
+    """The two table routes' compress wall at group sizes around
+    TABLES_DEVICE_MIN (the first B blocks of the main path's batch;
+    engine="device", so that groups under DEVICE_MIN_BYTES reach the
+    card too), both orders, medians of two runs each in turns; each run
+    must take its route and both routes give the same streams.  Host
+    wall times spread, so a size at which the route that
+    TABLES_DEVICE_MIN picks is the slower one is printed, not failed."""
+    res = {}
+    for order in (1, 0):
+        row = {}
+        for b in SWEEP_B:
+            if b > len(blocks):
+                break
+            walls = run_table_routes(blocks[:b], order, None,
+                                     f"sweep order {order} B={b}",
+                                     engine="device", quiet=True)
+            row[b] = {k: statistics.median(v) for k, v in walls.items()}
+            picked = "device" if b >= batch.TABLES_DEVICE_MIN else "host"
+            if row[b][picked] > min(row[b].values()):
+                log(f"note: sweep order {order} B={b}: TABLES_DEVICE_MIN "
+                    f"picks the slower table route here: {row[b]}")
+        res[f"order{order}"] = row
+    res["N"] = blocks.shape[1]
+    res["TABLES_DEVICE_MIN"] = batch.TABLES_DEVICE_MIN
+    return res
+
+
+def table_build_ms(blocks):
+    """Device time of the table build on the main path's batch, the
+    batch already on the card (CUDA events; order 1 without, order 0
+    with its small copies to the host)."""
+    bt = torch.from_numpy(blocks).to(DEV)
+    return {"order1": cuda_ms(lambda: tables_v2.build_o1_device_async(
+                bt, device=DEV), reps=3),
+            "order0": cuda_ms(lambda: tables_v2.build_o0_device(
+                bt, device=DEV), reps=3),
+            "shape": f"B={blocks.shape[0]} N={blocks.shape[1]}"}
+
+
+def band_counts(blocks):
+    """Blocks of an order-1 batch whose shift decision lies in the
+    float32 band, and those whose exact f64 replay flips it (rebuilt on
+    the host by the device-table route)."""
+    r = tables_v2.build_o1_device_async(blocks, device=DEV)
+    meta = r[3].cpu().numpy()
+    flips = tables_v2.resolve_band_flags(meta, r[4])
+    return int(meta[:, 2].sum()), int(flips.sum())
+
+
+def expect_only(name, launches, kernel):
+    """Exactly one launch of ``kernel`` and none of any other."""
+    for k, v in launches.items():
+        if v != (1 if k == kernel else 0):
+            fail(f"{name}: kernel {k} launched {v} times (expected only "
+                 f"one {kernel})")
+
+
+def run_pallas_path(blocks, order):
+    """The rans_pallas path: tables_v2.build_o*_device -> group by shift
+    -> rans_pallas.enc_o*_batch (states, counts and live words equal to
+    rans_v2.enc_o*_batch's for every block) -> rans_pallas.dec_o*_batch
+    (every block round-trips).  The launch counts are set to 0 just
+    before each rans_pallas call and read just after: one launch of the
+    packed kernel, none of any other.  Returns the launches summed over
+    the batch's calls and the largest shift group (indices, shift)."""
+    B, N = blocks.shape
+    name = f"rans_pallas synth4 order {order}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if order:
+        alpha_d, packed_d, _asz, _fh, shift, _flag, A = \
+            tables_v2.build_o1_device(blocks, device=DEV)
+    else:
+        alpha_d, packed_d, _asz, _fh, A = tables_v2.build_o0_device(
+            blocks, device=DEV)
+        shift = np.full(B, 12, np.int32)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    enc = rans_pallas.enc_o1_batch if order else rans_pallas.enc_o0_batch
+    dec = rans_pallas.dec_o1_batch if order else rans_pallas.dec_o0_batch
+    enc_v2 = rans_v2.enc_o1_batch if order else rans_v2.enc_o0_batch
+    total = {"rans16_enc_packed": 0, "rans16_dec_packed": 0}
+    groups = []
+    t_enc = t_dec = 0.0
+    for sv in np.unique(shift):
+        sel = np.flatnonzero(shift == sv)
+        sub = blocks[sel]
+        selt = torch.from_numpy(sel).to(DEV)
+        al, pk = alpha_d[selt], packed_d[selt]
+        rans_vmem.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, wd, cn = enc(sub, al, pk, int(sv))
+        torch.cuda.synchronize()
+        t_enc += time.perf_counter() - t
+        expect_only(f"{name} encode shift={sv}", rans_vmem.LAUNCHES,
+                    "rans16_enc_packed")
+        st2, wd2, cn2 = enc_v2(sub, al.cpu().numpy(), pk.cpu().numpy(),
+                               int(sv))
+        live = np.arange(wd.shape[1])[None, :] < cn[:, None]
+        if (not np.array_equal(st, st2) or not np.array_equal(cn, cn2)
+                or wd.shape != wd2.shape
+                or not np.array_equal(np.where(live, wd, 0),
+                                      np.where(live, wd2, 0))):
+            fail(f"{name}: encode differs from rans_v2's at shift {sv}")
+        rans_vmem.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dec(st, wd, N, al, pk, int(sv))
+        torch.cuda.synchronize()
+        t_dec += time.perf_counter() - t
+        expect_only(f"{name} decode shift={sv}", rans_vmem.LAUNCHES,
+                    "rans16_dec_packed")
+        if not np.array_equal(out, sub):
+            fail(f"{name}: a block of shift {sv} did not round-trip")
+        total["rans16_enc_packed"] += 1
+        total["rans16_dec_packed"] += 1
+        groups.append((len(sel), int(sv), sel))
+    log(f"path {name}: B={B} N={N} A={A} table build {t_build:.3f} s, "
+        f"shift groups {[(g[1], g[0]) for g in groups]}, encode "
+        f"{t_enc:.3f} s, decode {t_dec:.3f} s (host wall, transfers "
+        f"included); every block's encode equals rans_v2's and every "
+        f"block round-trips; launches {total}")
+    _n, sv, sel = max(groups, key=lambda g: g[0])
+    return total, (sel, sv, alpha_d, packed_d)
 
 
 def profile_call(label, fn, *args):
@@ -671,6 +935,75 @@ def kernel_times8(blocks, order, launches):
     ]
 
 
+def kernel_times_packed(blocks, group, launches):
+    """The two packed-row kernels at the shape the rans_pallas path gave
+    them (its largest order-1 shift group, tables from the device
+    build): each held against its plain version once more and timed,
+    and the three 4x16 encodes timed whole on the same blocks and
+    tables in turns (pfv, vmem, packed, packed, vmem, pfv; raw bytes
+    in, streams out).  Returns the ``kernels`` entries and the whole-
+    encode times."""
+    sel, sv, alpha_d, packed_d = group
+    selt = torch.from_numpy(sel).to(DEV)
+    bt = torch.from_numpy(blocks[sel]).to(DEV)
+    al = alpha_d[selt].contiguous()
+    pk3 = packed_d[selt].contiguous()
+    B, N = bt.shape
+    A = al.shape[1]
+    pk = pk3.view(B, A * A)
+    shape = f"B={B} N={N} A={A} order=1 shift={sv}"
+    plain = {}
+    nq = B * 4 * (N // 4 + N % 4)
+
+    tables = convert.tables_from_packed(al, pk3, sv)
+    whole = {"pfv": [], "vmem": [], "packed": []}
+    runs = {"pfv": lambda: rans_vmem.enc_batch(bt, tables, 1, prefetch=True),
+            "vmem": lambda: rans_vmem.enc_batch(bt, tables, 1, prefetch=False),
+            "packed": lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)}
+    for v in ("pfv", "vmem", "packed", "packed", "vmem", "pfv"):
+        whole[v].append(cuda_ms(runs[v], reps=3))
+    whole = {k: statistics.median(v) for k, v in whole.items()}
+    whole["shape"] = shape
+
+    enc = rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)
+    ms_enc = cuda_ms(lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1))
+    pl_enc = once(lambda: plain.update(enc=rans_pallas._rans16_enc_packed_plain(
+        bt, al, pk, sv, 1)))
+    err_enc = streams_err(enc, plain.pop("enc"))
+    st, wd, cn = enc
+    nwords = int(cn.sum())
+    words = wd[:, :max(int(cn.max()), 1)].contiguous()
+    del enc, wd
+    out = rans_pallas.rans16_dec_packed(st, words, pk, al, sv, N, 1)
+    ms_dec = cuda_ms(lambda: rans_pallas.rans16_dec_packed(
+        st, words, pk, al, sv, N, 1))
+    pl_dec = once(lambda: plain.update(dec=rans_pallas._rans16_dec_packed_plain(
+        st, words, pk, al, sv, N, 1)))
+    err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
+
+    # bytes: every input once, every output once.  Encode: the block
+    # bytes, alphabet and packed rows in, states, counts and words out;
+    # per symbol the 4x16 step (32, the divide counted as 20) and the
+    # lookup (two table loads, a multiply-add, a bound test: 6), per
+    # block the 256-entry byte table (a compare and an add per alphabet
+    # entry).  Decode: the words, rows, alphabet and states in, the bytes
+    # out; per symbol the step and a bisection of the row, as for
+    # rans16_dec (the kernel's linear scan is its own cost, not the
+    # function's).
+    tab = B * A * A * 4 + B * A
+    enc_bytes = B * N + tab + 2 * nwords + B * (16 + 4)
+    dec_bytes = 2 * nwords + tab + B * 16 + B * N
+    ref = "htscodecs_tpu/ops/rans_pallas.py"
+    return [
+        entry("rans16_dec_packed", "rans16_dec_packed.cu", f"{ref}:265",
+              shape, launches, ms_dec, pl_dec, err_dec, dec_bytes,
+              (12 + 3 * math.ceil(math.log2(A + 1))) * nq, None),
+        entry("rans16_enc_packed", "rans16_enc_packed.cu", f"{ref}:485",
+              shape, launches, ms_enc, pl_enc, err_enc, enc_bytes,
+              38 * nq + 2 * 256 * A * B, None),
+    ], whole
+
+
 PLAIN_CUT = 8192     # byte (event) indices the range-coder plain versions run
 
 
@@ -840,6 +1173,11 @@ def main() -> None:
     ncases = phase_kernels_rc(args.quick)
     log(f"range-coder kernels == plain versions (tolerance 0) on {ncases} "
         f"cases in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ncases = phase_kernels_packed(args.quick)
+    log(f"packed-row kernels == plain versions and == rans16_enc / "
+        f"rans16_dec (tolerance 0) on {ncases} cases in "
+        f"{time.perf_counter() - t:.1f} s")
     print(json.dumps({"kernels_vs_plain": [
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
@@ -854,8 +1192,20 @@ def main() -> None:
     launches = {}
     launches["rans4x16"], streams1 = run_main_path(
         R4X16, "synth4 order 1", q4, 1, 256)
-    run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
+    nband, nflip = band_counts(q4)
+    log(f"synth4 order 1: {nband} blocks in the shift band, {nflip} rebuilt "
+        "on the host")
+    _l, streams0 = run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
     run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
+    routes_s = {f"order{o}": run_table_routes(q4, o, st, f"synth4 order {o}")
+                for o, st in ((1, streams1), (0, streams0))}
+    routes_s["shape"] = f"B={B} N={N}"
+    del streams0
+    route_sweep = table_route_sweep(q4)
+
+    # the first-generation engine on device-built tables
+    launches["packed"], group = run_pallas_path(q4, 1)
+    run_pallas_path(q4, 0)
 
     # rANS 4x8: its host coder is pure Python, so the sample is 16
     launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
@@ -895,12 +1245,16 @@ def main() -> None:
     profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
                  "device")
     entries, variants = kernel_times(q4, 1, launches)
+    packed_entries, whole = kernel_times_packed(q4, group, launches["packed"])
+    del group
+    build_ms = table_build_ms(q4)
     entries += kernel_times8(q4, 1, launches)
     entries += kernel_times_arith(q4, 1, launches["arith"])
     sweep = arith_thread_sweep(q4)
     del q4
     entries += kernel_times_rc(jobs, launches["fqz"])
     del jobs
+    entries += packed_entries
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
@@ -908,6 +1262,15 @@ def main() -> None:
             f"{' at ' + e['plain_shape'] if 'plain_shape' in e else ''})")
     log(f"4x16 encode whole (densify + inputs + kernels), ms: {variants}")
     print(json.dumps({"enc_variant_ms": variants}), flush=True)
+    log(f"4x16 encode whole on the rans_pallas group, in turns, ms: {whole}")
+    print(json.dumps({"enc_whole_ms": whole}), flush=True)
+    log(f"rANS 4x16 compress wall by table route, s: {routes_s}")
+    print(json.dumps({"table_route_compress_s": routes_s}), flush=True)
+    log(f"rANS 4x16 compress wall by table route and group size B, "
+        f"engine='device', s: {route_sweep}")
+    print(json.dumps({"table_route_sweep_s": route_sweep}), flush=True)
+    log(f"device table build, ms: {build_ms}")
+    print(json.dumps({"table_build_ms": build_ms}), flush=True)
     log(f"arith [enc, dec] ms by order and threads per CTA: {sweep}")
     print(json.dumps({"arith_threads_per_cta_ms": sweep}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

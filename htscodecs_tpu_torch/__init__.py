@@ -14,9 +14,11 @@ batched rANS 4x16 (CRAM 3.1), rANS 4x8 (CRAM 3.0) and arith_dynamic
   ``models.fqz``: the single-block host codecs (the oracles, and the
   route of small groups and transform-flagged orders);
 - ``ops.rans_vmem``, ``ops.rans8_vmem``, ``ops.arith_vmem``,
-  ``ops.rc_vmem``: nine hand-written CUDA kernels (sources in
-  ``csrc/``) with their plain PyTorch versions; built by ``nvcc`` at
-  first use into ``_build/``;
+  ``ops.rc_vmem``, ``ops.rans_pallas``: eleven hand-written CUDA
+  kernels (sources in ``csrc/``) with their plain PyTorch versions;
+  built by ``nvcc`` at first use into ``_build/``;
+- ``ops.tables_v2``: the rANS 4x16 frequency tables built on the
+  device (the batch layer's route for large groups);
 - ``ops.convert``: tables and streams between the reference's numpy
   layouts and the port's tensors;
 - ``native``: the host C runtime (tables, scalar coders), built by the

@@ -1,4 +1,4 @@
-// What the encode kernels of this directory share: the thread layout
+// What the rANS kernels of this directory share: the thread layout
 // (one 4-thread group per rANS block, 128 threads = 32 blocks per CUDA
 // block), the in-kernel table lookup, the rANS 4x16 encode step and the
 // final reversal of a block's emitted elements.
@@ -42,19 +42,19 @@ __device__ __forceinline__ void table_entry(const int16_t* __restrict__ tb,
 
 // One rANS 4x16 encode step of a group (rANS_word.h, L = 1 << 15):
 //   emit = X >= ((L >> shift) << 16) * f;  word = X & 0xFFFF;
-//   X >>= 16 if emit;  X = (X / f << shift) + X % f + start.
-// v = start | freq << 12.  The word's rank in the block's emission
-// sequence is the running count n plus the popcount of the lower lanes'
-// ballot bits; gsh is the group's first bit in the warp's ballot.
-// Every thread of the warp must call this (the ballot is warp-wide).
-__device__ __forceinline__ void enc16_step(uint32_t& X, int& n,
-                                           uint16_t* __restrict__ w,
-                                           uint32_t v, bool ok, bool live,
-                                           int j, unsigned gsh,
-                                           uint32_t xmult, int sh)
+//   X >>= 16 if emit;  X = (X / f << shift) + X % f + start
+// in uint32 arithmetic (a freq of 0 divides by 1).  The word's rank in
+// the block's emission sequence is the running count n plus the
+// popcount of the lower lanes' ballot bits; gsh is the group's first
+// bit in the warp's ballot.  Every thread of the warp must call this
+// (the ballot is warp-wide).
+__device__ __forceinline__ void enc16_put(uint32_t& X, int& n,
+                                          uint16_t* __restrict__ w,
+                                          uint32_t start, uint32_t f,
+                                          bool ok, bool live, int j,
+                                          unsigned gsh, uint32_t xmult,
+                                          int sh)
 {
-    const uint32_t start = v & 0xFFFu;
-    const uint32_t f = (v >> 12) & 0x1FFFu;
     const bool emit = ok && X >= xmult * f;
     const unsigned g = (__ballot_sync(0xffffffffu, emit) >> gsh) & 0xFu;
     if (emit) {
@@ -67,6 +67,17 @@ __device__ __forceinline__ void enc16_step(uint32_t& X, int& n,
         const uint32_t qq = X / fs;
         X = (qq << sh) + (X - qq * fs) + start;
     }
+}
+
+// The same step from v = start | freq << 12 (what sf_fetch gathers).
+__device__ __forceinline__ void enc16_step(uint32_t& X, int& n,
+                                           uint16_t* __restrict__ w,
+                                           uint32_t v, bool ok, bool live,
+                                           int j, unsigned gsh,
+                                           uint32_t xmult, int sh)
+{
+    enc16_put(X, n, w, v & 0xFFFu, (v >> 12) & 0x1FFFu, ok, live, j, gsh,
+              xmult, sh);
 }
 
 // Forward order = reverse of emission order: the warp reverses, in

@@ -113,6 +113,10 @@ def _declare(lib) -> None:
     lib.arith_dec_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
     lib.rc_enc_launch.restype = _int
     lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 4 + [_vp]
+    lib.rans16_dec_packed_launch.restype = _int
+    lib.rans16_dec_packed_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
+    lib.rans16_enc_packed_launch.restype = _int
+    lib.rans16_enc_packed_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
 
 
 def get_lib():

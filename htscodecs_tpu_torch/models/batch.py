@@ -10,9 +10,14 @@ the native host coder.  Streams are byte-identical to
 ``rans4x16.compress`` / the C reference in every path.
 
 Batching rules: blocks group by (length, order[, table precision]) —
-the kernels are launched per shape.  Frequency tables are built and
-parsed on the host (native C over a thread pool) and shipped to the
-device as dense per-block tables.
+the kernels are launched per shape.  Encode tables of a group of at
+least ``TABLES_DEVICE_MIN`` blocks of at least 32 bytes are built on
+the device (``ops/tables_v2.py``, as in the JAX package, with a
+threshold measured on the card), those of smaller groups on the host
+(native C over a thread pool);
+``TABLE_ROUTES`` counts the groups that took each route.  Decode tables
+are parsed on the host and shipped to the device as dense per-block
+tables.
 
 ``r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` are the same
 layer for the CRAM 3.0 codec (rANS 4x8): tables from the native dense
@@ -48,10 +53,11 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from . import arith, fqz, rans4x8, rans4x16
 from .. import native
-from ..ops import arith_vmem, rans8_v2, rans_v2
+from ..ops import arith_vmem, convert, rans8_v2, rans_v2, rans_vmem, tables_v2
 from ..utils import varint
 
 # Below this many blocks in a shape group, the host path wins (device
@@ -62,6 +68,19 @@ DEVICE_MIN_GROUP = 16
 # retune).
 DEVICE_MIN_BYTES = int(os.environ.get(
     "HTSCODECS_TORCH_DEVICE_MIN_BYTES", 4 << 20))
+
+# Minimum group size for the on-device table builders: below it the
+# host C builder over the thread pool builds the tables.  Measured on
+# an H100 with 64 KiB blocks (chip_smoke.py's table-route sweep), the
+# device route's compress wall wins at both orders from 64 blocks up
+# and loses at 4 (order 1 also at 16); 64 such blocks are also the
+# 4 MiB that "auto" needs to reach the card at all.  (The JAX package
+# uses 512.)
+TABLES_DEVICE_MIN = 64
+# rANS 4x16 encode groups by table route ("device": ops/tables_v2,
+# "host": native C), counted as rans_vmem.LAUNCHES counts launches, so
+# that a run can show which route a batch took
+TABLE_ROUTES = {"device": 0, "host": 0}
 
 # Host table construction is native C via ctypes (GIL released), so a
 # thread pool scales it across cores.
@@ -144,12 +163,103 @@ def _join_bodies(hdrs, states, words, counts) -> list[bytes]:
             for b in range(len(hdrs))]
 
 
+def _enc_prefetch() -> bool:
+    return rans_v2.get_enc_variant()["row_fetch"] == "pfv"
+
+
+def _bodies_o0_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
+    """Order-0 entropy bodies with on-device table construction
+    (ops/tables_v2.py); None -> the caller takes the host-table route.
+    The batch goes to the device once: the table build and the encode
+    read the same tensor."""
+    jb = convert.as_tensor(batch, torch.uint8, dev)
+    r = tables_v2.build_o0_device(jb, device=dev)
+    if r is None:
+        return None
+    alpha_d, packed_d, _asz, fhdr, _A = r
+    hdrs = native.serialize_o0_batch(fhdr)
+    if hdrs is None:
+        return None
+    tables = convert.tables_from_packed(alpha_d, packed_d, 12)
+    enc = rans_vmem.enc_batch(jb, tables, 0, prefetch=_enc_prefetch())
+    return _join_bodies(hdrs, *convert.streams_to_reference(*enc))
+
+
+def _mark(dev):
+    """An event recorded on ``dev``'s current stream (the stream its
+    tensors' work is queued on, whichever device is current); None on
+    the CPU."""
+    if dev.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def _copy_after(event, tensors):
+    """Host copies of small device tensors, made on a side stream once
+    ``event`` has passed, so that they run beside the work queued on
+    the current stream since.  Returns (host tensors, done event); on
+    the CPU (event None) the tensors themselves and None."""
+    if event is None:
+        return list(tensors), None
+    side = torch.cuda.Stream(device=tensors[0].device)
+    side.wait_event(event)
+    with torch.cuda.stream(side):
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    return host, done
+
+
+def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
+    """Order-1 entropy bodies with on-device table construction.
+
+    The batch goes to the device once.  The encode runs with the
+    per-block shift the builder chose and is launched BEFORE the host
+    copies meta, header frequencies and alphabet on a side stream, so
+    the host serialises headers and replays banded shift decisions
+    while the device encodes.  Blocks whose decision really flips
+    rebuild on the host, so streams stay byte-exact.  None -> the
+    caller takes the host-table route."""
+    jb = convert.as_tensor(batch, torch.uint8, dev)
+    r = tables_v2.build_o1_device_async(jb, device=dev)
+    if r is None:
+        return None
+    alpha_d, packed_d, fhdr_d, meta_d, H_d, _A = r
+    built = _mark(dev)
+    tables = convert.tables_from_packed(alpha_d, packed_d, meta_d[:, 1])
+    enc = rans_vmem.enc_batch(jb, tables, 1, prefetch=_enc_prefetch())
+    host, done = _copy_after(built, (meta_d, fhdr_d, alpha_d))
+    if done is not None:
+        done.synchronize()
+    meta, fhdr, alpha_h = (t.numpy() for t in host)
+    hdrs = native.serialize_o1_dense_batch(alpha_h, meta[:, 0],
+                                           fhdr.view(np.uint16), meta[:, 1])
+    if hdrs is None:
+        return None
+    flag = tables_v2.resolve_band_flags(meta, H_d)
+    bodies = _join_bodies(hdrs, *convert.streams_to_reference(*enc))
+    for b in np.flatnonzero(flag):
+        bodies[b] = rans4x16._compress_o1(batch[b])
+    return bodies
+
+
 def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
     """Entropy bodies (freq header + payload, no wrapper framing) for
     a batch of equal-length blocks, order 0."""
     B, N = batch.shape
     if not native.available():
         return [rans4x16._compress_o0(batch[b]) for b in range(B)]
+    if B >= TABLES_DEVICE_MIN and N >= 32:
+        res = _bodies_o0_devtables(batch, dev)
+        if res is not None:
+            TABLE_ROUTES["device"] += 1
+            return res
+    TABLE_ROUTES["host"] += 1
     res = _pmap(native.build_tables_o0, list(batch))
     if any(r is None for r in res):
         return [rans4x16._compress_o0(batch[b]) for b in range(B)]
@@ -170,6 +280,12 @@ def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
     B, N = batch.shape
     if N < 8 or not native.available():
         return [rans4x16._compress_o1(batch[b]) for b in range(B)]
+    if B >= TABLES_DEVICE_MIN and N >= 32:
+        res = _bodies_o1_devtables(batch, dev)
+        if res is not None:
+            TABLE_ROUTES["device"] += 1
+            return res
+    TABLE_ROUTES["host"] += 1
     res = _pmap(native.build_tables_o1_dense, list(batch))
     if any(r is None for r in res):
         # wide alphabet (A > 96) somewhere: such data is rare (random

@@ -68,6 +68,15 @@ def _tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def as_tensor(x, dtype, device) -> torch.Tensor:
+    """A numpy array or a tensor -> a contiguous ``dtype`` tensor on
+    ``device`` (a tensor already there, of that type, is used as it
+    is)."""
+    if not isinstance(x, torch.Tensor):
+        x = _tensor(np.ascontiguousarray(x), device)
+    return x.to(device=device, dtype=dtype).contiguous()
+
+
 def shift_vector(shift, B: int) -> np.ndarray:
     """int or (B,) -> (B,) int32."""
     if isinstance(shift, (int, np.integer)):
@@ -82,13 +91,32 @@ def tables_from_reference(alpha, packed, shift, device) -> Tables:
     """Reference numpy tables -> the port's ``Tables`` on ``device``."""
     alpha = np.ascontiguousarray(alpha, dtype=np.uint8)
     packed = np.ascontiguousarray(packed, dtype=np.int32)
-    B = alpha.shape[0]
-    sv = _tensor(shift_vector(shift, B), device)
-    pk = _tensor(packed, device)
+    return tables_from_packed(_tensor(alpha, device),
+                              _tensor(packed, device), shift)
+
+
+def tables_from_packed(alpha: torch.Tensor, packed: torch.Tensor,
+                       shift) -> Tables:
+    """Packed rows already on the device -> ``Tables`` there, tensor in,
+    tensor out (the device table build's outputs need no host round
+    trip).  alpha (B, A) uint8; packed (B, A, A) int32 for order 1,
+    (B, A) for order 0, as ``base << 13 | freq``; shift an int, a (B,)
+    numpy vector or a (B,) integer tensor.  The same bits as
+    ``tables_from_reference`` on the same values."""
+    dev = packed.device
+    B = packed.shape[0]
+    if isinstance(shift, torch.Tensor):
+        sv = shift.to(device=dev, dtype=torch.int32).contiguous()
+        if tuple(sv.shape) != (B,):
+            raise ValueError(f"shift vector must have shape ({B},)")
+    else:
+        sv = _tensor(shift_vector(shift, B), dev)
+    pk = packed.to(torch.int32)
     if pk.dim() == 2:                      # order 0: one row per block
         pk = pk[:, None, :]
     bases = rans_v2._b16_fill(pk, sv).to(torch.int16).contiguous()
-    return Tables(_tensor(alpha, device), bases, sv)
+    return Tables(alpha.to(device=dev, dtype=torch.uint8).contiguous(),
+                  bases, sv)
 
 
 def tables_to_reference(tables: Tables, order: int):

@@ -52,12 +52,13 @@ RANS_L = 1 << 15
 _M32 = 0xFFFFFFFF
 
 # launches per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py and the
-# range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py count in
-# the same table)
+# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py, the
+# range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py and the
+# packed-row engine in ops/rans_pallas.py count in the same table)
 LAUNCHES = {"rans16_dec": 0, "sf_fetch": 0, "rans16_enc": 0,
             "rans16_enc_fused": 0, "rans8_enc": 0, "rans8_dec": 0,
-            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0}
+            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0,
+            "rans16_dec_packed": 0, "rans16_enc_packed": 0}
 
 
 def reset_launches() -> None:
@@ -126,19 +127,37 @@ def rans16_dec(states, words, counts, tables: Tables, N: int, order: int):
 def _rans16_dec_plain(states, words, counts, tables: Tables, N: int,
                       order: int):
     """Plain PyTorch version of rans16_dec (same arguments)."""
-    B, W = words.shape
+    B = words.shape[0]
     A = tables.alpha.shape[1]
+    rows_all = tables.bases.to(torch.int64)                 # (B,Ac,A+1)
+    bidx = torch.arange(B, device=words.device)[:, None]
+
+    def lookup(ctx, m):
+        if order == 1:
+            rows = rows_all[bidx, ctx]                      # (B,4,A+1)
+        else:
+            rows = rows_all[:, 0][:, None, :].expand(B, 4, A + 1)
+        return _slot_lookup(rows, m)
+    return _dec16_scan(states, words, counts, lookup, tables.alpha,
+                       tables.shift, N, order)
+
+
+def _dec16_scan(states, words, counts, lookup, alpha, shift, N: int,
+                order: int):
+    """The 4x16 decode scan of the plain versions.  ``lookup(ctx, m)``
+    resolves slots m (B,4) in context rows ctx (B,4) to (sym, base,
+    freq), each (B,4) int64; counts (B,) bound each block's word reads
+    (None: the whole row).  Returns (B, N) uint8."""
+    B, W = words.shape
     dev = words.device
     q, K = _dec_geometry(N, order)
     i64 = torch.int64
     X = states.to(i64) & _M32                               # (B,4)
     wl = words.to(i64) & 0xFFFF
-    nw = counts.to(i64).clamp(max=W)[:, None]
-    rows_all = tables.bases.to(i64)                         # (B,Ac,A+1)
-    alpha = tables.alpha
-    sh = tables.shift.to(i64)[:, None]
+    nw = (torch.full((B, 1), W, dtype=i64, device=dev) if counts is None
+          else counts.to(i64).clamp(max=W)[:, None])
+    sh = shift.to(i64)[:, None]
     mask = (torch.ones_like(sh) << sh) - 1
-    bidx = torch.arange(B, device=dev)[:, None]
     lanes = torch.arange(4, device=dev)
     p = torch.zeros((B,), dtype=i64, device=dev)
     ctx = torch.zeros((B, 4), dtype=i64, device=dev)
@@ -146,13 +165,11 @@ def _rans16_dec_plain(states, words, counts, tables: Tables, N: int,
     for s in range(K):
         if order == 1:
             act = (lanes == 3) if s >= q else lanes >= 0
-            rows = rows_all[bidx, ctx]                      # (B,4,A+1)
         else:
             act = lanes >= 0
-            rows = rows_all[:, 0][:, None, :].expand(B, 4, A + 1)
         act = act[None, :]
         m = X & mask
-        sym, bs, f = _slot_lookup(rows, m)
+        sym, bs, f = lookup(ctx, m)
         Xn = (f * (X >> sh) + m - bs) & _M32
         need = (Xn < RANS_L) & act
         ni = need.to(i64)
@@ -258,13 +275,19 @@ def rans16_enc(sf, shift, K: int, geom: int, order: int):
 def _rans16_enc_plain(sf, shift, K: int, geom: int, order: int):
     """Plain PyTorch version of rans16_enc (same arguments)."""
     sfl = sf.to(torch.int64).view(sf.shape[0], K, 4)
-    return _enc16_scan(lambda s: sfl[:, s, :], shift, K, geom, order)
+    return _enc16_scan(lambda s: _split_sf(sfl[:, s, :]), shift, K, geom,
+                       order)
+
+
+def _split_sf(v):
+    """``start | freq << 12`` values -> (start, freq)."""
+    return v & 0xFFF, (v >> 12) & 0x1FFF
 
 
 def _enc16_scan(fetch, shift, K: int, geom: int, order: int):
     """The 4x16 encode scan of the plain versions.  ``fetch(s)`` gives
-    step s's (B,4) int64 ``start | freq << 12`` values, processing lane
-    minor."""
+    step s's (start, freq), each (B,4) int64 in [0, 2^32), processing
+    lane minor."""
     B = shift.shape[0]
     dev = shift.device
     i64 = torch.int64
@@ -278,9 +301,7 @@ def _enc16_scan(fetch, shift, K: int, geom: int, order: int):
     n = torch.zeros((B,), dtype=i64, device=dev)
     for s in range(K):
         ok = _enc_active(lanes, s, geom, order)
-        v = fetch(s)
-        start = v & 0xFFF
-        f = (v >> 12) & 0x1FFF
+        start, f = fetch(s)
         emit = ok & (X >= ((xmult * f) & _M32))
         ei = emit.to(i64)
         rank = n[:, None] + ei.cumsum(dim=1) - ei
@@ -396,7 +417,7 @@ def _rans16_enc_fused_plain(sym, ctx, tables: Tables, K: int, geom: int,
     def fetch(s):
         start, nxt = entries(s)
         # the value sf_table would hold for this entry (int32 bits)
-        return (start | ((nxt - start) << 12)) & _M32
+        return _split_sf((start | ((nxt - start) << 12)) & _M32)
     return _enc16_scan(fetch, tables.shift, K, geom, order)
 
 

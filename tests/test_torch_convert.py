@@ -33,6 +33,41 @@ def test_tables_round_trip(order, shift):
     assert torch.equal(t2.bases, t.bases)
 
 
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("shift", [10, "vector", "tensor"])
+def test_tables_from_packed_equals_tables_from_reference(order, shift):
+    """The tensor-in, tensor-out conversion of the device table build's
+    packed rows gives the same bits as the numpy route."""
+    B, N = 5, 400
+    blocks = testdata.synth_wide(B, N, 9, seed=4)
+    sv = np.array([10, 12, 12, 10, 12], np.int32)
+    tab_shift = 10 if shift == 10 else sv
+    arg = {10: 10, "vector": sv, "tensor": torch.from_numpy(sv)}[shift]
+    alpha, packed, _A = testdata.synth_tables(blocks, tab_shift, order)
+    ref = convert.tables_from_reference(alpha, packed, tab_shift, "cpu")
+    t = convert.tables_from_packed(torch.from_numpy(alpha),
+                                   torch.from_numpy(packed), arg)
+    assert torch.equal(t.alpha, ref.alpha)
+    assert torch.equal(t.bases, ref.bases) and t.bases.dtype == torch.int16
+    assert torch.equal(t.shift, ref.shift) and t.shift.dtype == torch.int32
+    assert t.bases.is_contiguous()
+
+
+def test_tables_from_packed_rejects_a_wrong_shift_vector():
+    alpha = torch.zeros((3, 4), dtype=torch.uint8)
+    packed = torch.zeros((3, 4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        convert.tables_from_packed(alpha, packed, torch.tensor([10, 12]))
+
+
+def test_as_tensor_takes_arrays_and_tensors():
+    t = convert.as_tensor(np.arange(6).reshape(2, 3), torch.int16, "cpu")
+    assert t.dtype == torch.int16 and t.tolist() == [[0, 1, 2], [3, 4, 5]]
+    u = convert.as_tensor(t.t(), torch.int32, "cpu")
+    assert u.is_contiguous() and u.dtype == torch.int32
+    assert u.tolist() == [[0, 3], [1, 4], [2, 5]]
+
+
 def test_streams_round_trip_keeps_high_bits():
     rng = np.random.default_rng(8)
     B, W = 7, 33
