@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (htscodecs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--blocks B] [--quick]
+    python3 chip_smoke.py [--blocks B] [--quick] [--ab DIR]
 
 Needs one CUDA device, ``nvcc`` and a host C compiler; no network.
 What it does, in order (any failure exits non-zero):
@@ -18,8 +18,14 @@ What it does, in order (any failure exits non-zero):
    the sf_fetch + rans16_enc pair, and the two packed-row kernels
    against rans16_enc / rans16_dec on the same tables (holes
    included); the range-coder kernels run over model widths 2..256,
-   ragged lengths, a normalising input, deferred-byte runs and triples
-   replayed from fqz jobs;
+   ragged lengths, a normalising input, truncated and garbage streams,
+   deferred-byte runs (one of 5000 bytes; 64 that end at every address
+   modulo the small ring), totals of 0/1/2/65535 and frequencies of 0,
+   B up to 193 and triples replayed from fqz jobs; rc_enc at its default
+   chunk and ring sizes and at (32, 64) and (8, 16), arith_dec at order
+   1 with its default pool and pools of 1 and 2 rows (the global-bank
+   route), and at M = 256 with every context in use; blocks holding
+   byte 255 (max-symbol byte 0) go through the arith batch entries;
 3. drives the main paths at full width through the entry points a user
    calls, the launch counts set to 0 just before each and read just
    after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
@@ -53,9 +59,16 @@ What it does, in order (any failure exits non-zero):
    length cut to 8192) and, for sf_fetch, ``torch.gather``; times the
    two 4x16 encode variants whole, tensor preparation included, then
    those two and the packed encode on the rans_pallas path's largest
-   shift group, the device table build, and the arith kernels at 1 to
-   32 threads per CTA; prints the compress wall of both table routes,
-   at B and at group sizes 4 to 1024 around ``TABLES_DEVICE_MIN``.
+   shift group, the device table build, arith_dec at each arith
+   main-path shape (with its default pool and the blocks whose contexts
+   overflow it), and the arith kernels at 1 to 32 threads per CTA and
+   arith_dec's pool sizes; prints the compress wall of both table
+   routes, at B and at group sizes 4 to 1024 around
+   ``TABLES_DEVICE_MIN``.
+
+``--ab DIR`` runs none of that: it times rc_enc and arith_dec of this
+checkout against those of the checkout at DIR (the parent commit,
+unpacked with ``git archive``), in turns, on the main paths' inputs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -86,7 +99,7 @@ from htscodecs_tpu_torch.models import (arith, batch, fqz,  # noqa: E402
 from htscodecs_tpu_torch.ops import (arith_vmem, convert,  # noqa: E402
                                      rans8_vmem, rans_pallas, rans_v2,
                                      rans_vmem, rc_vmem, tables_v2)
-from htscodecs_tpu_torch.utils import testdata  # noqa: E402
+from htscodecs_tpu_torch.utils import testdata, varint  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -230,8 +243,13 @@ def same_bytes(got, want) -> bool:
     return torch.equal(cn, cn2) and same_live(by, by2, cn)
 
 
+POOLS = (0, 1, 2)    # arith_dec's order-1 pool: the default, then 1 and 2 rows
+
+
 def check_arith_case(blocks, lens, ms, order, label, garbage=False) -> None:
-    """arith_enc and arith_dec on one ragged batch."""
+    """arith_enc and arith_dec on one ragged batch; at order 1 the
+    decoder runs with its default pool and with pools of 1 and 2 rows,
+    so that contexts past the pool take the global bank."""
     B, N = blocks.shape
     M = int(ms.max())
     bt, lt, mt = (torch.from_numpy(x).to(DEV) for x in (blocks, lens, ms))
@@ -250,24 +268,64 @@ def check_arith_case(blocks, lens, ms, order, label, garbage=False) -> None:
         variants += [(" truncated", stream, cn_k // 2),
                      (" garbage", noise, cn_k)]
     for tag, st, cn in variants:
-        out_k = arith_vmem.arith_dec(st, cn, lt, mt, M, N, order)
         out_p = arith_vmem._arith_dec_plain(st, cn, lt, mt, M, N, order)
-        torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
-            fail(f"arith_dec != plain at {label}{tag}")
+        for pool in (POOLS if order else (0,)):
+            out_k = arith_vmem.arith_dec(st, cn, lt, mt, M, N, order,
+                                         pool=min(pool, M))
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, out_p):
+                fail(f"arith_dec != plain at {label}{tag} pool={pool}")
         # a few bytes may code to under 6, which decodes nothing
         if not tag and N >= 33 and not same_live(out_k, bt, lt):
             fail(f"arith_dec did not return the input at {label}")
 
 
+# rc_enc (chunk, ring): the defaults, then two small pairs
+RC_SHAPES = ((0, 0), (32, 64), (8, 16))
+
+
 def check_rc_case(triples, label) -> None:
-    """rc_enc on one ragged batch of (acc, f, tot) triples."""
+    """rc_enc on one ragged batch of (acc, f, tot) triples, at the
+    default chunk and ring sizes and at small ones that put every
+    boundary inside the batch."""
     acc, f, tot, cn = convert.triples_from_reference(triples, DEV)
-    enc_k = rc_vmem.rc_enc(acc, f, tot, cn)
     enc_p = rc_vmem._rc_enc_plain(acc, f, tot, cn)
-    torch.cuda.synchronize()
-    if not same_bytes(enc_k, enc_p):
-        fail(f"rc_enc != plain at {label}")
+    for chunk, ring in RC_SHAPES:
+        enc_k = rc_vmem.rc_enc(acc, f, tot, cn, chunk=chunk, ring=ring)
+        torch.cuda.synchronize()
+        if not same_bytes(enc_k, enc_p):
+            fail(f"rc_enc != plain at {label} chunk={chunk} ring={ring}")
+    return enc_k, enc_p
+
+
+def rc_edge_triples():
+    """Two blocks of valid random events with totals of 0, 1, 2 and
+    65535 and frequencies of 0 between them (a 0 is taken as 1)."""
+    out = []
+    for b, special in enumerate([(0, 0, 0), (0, 1, 1), (1, 1, 2),
+                                 (65534, 1, 65535), (0, 0, 2),
+                                 (7, 0, 65535)]):
+        a, f, t = testdata.random_triples(1, 60 + b, seed=70 + b)[0]
+        a, f, t = a.copy(), f.copy(), t.copy()
+        a[::7], f[::7], t[::7] = special
+        out.append((a, f, t))
+    return out
+
+
+def check_ring_flush_runs() -> None:
+    """Deferred runs of 100..163 bytes, longer than the small ring of 64:
+    the runs end at every address modulo 64, so one of them ends where a
+    ring window does."""
+    tris = [testdata.ff_run_triples(100 + b) for b in range(64)]
+    enc_k, enc_p = check_rc_case(tris, "deferred runs 100..163")
+    by, cn = (x.cpu() for x in enc_p)
+    ends = []
+    for b in range(64):
+        row = by[b, :int(cn[b])].tolist()
+        j = max(i for i in range(len(row)) if row[i] == 0xFF) + 1
+        ends.append((enc_k[0][b].data_ptr() + j) % 64)
+    if 0 not in ends:
+        fail(f"no deferred run ends at a ring flush: {sorted(set(ends))}")
 
 
 def phase_kernels_rc(quick: bool) -> int:
@@ -300,6 +358,33 @@ def phase_kernels_rc(quick: bool) -> int:
                          np.full(2, 8, np.int32), order,
                          f"arith normalising N={N} order={order}")
         n += 1
+    # order 1 at M = 256 with every context in use: past the default
+    # pool of a small batch too
+    rng = np.random.default_rng(256)
+    blocks = rng.integers(0, 256, (2, 3000)).astype(np.uint8)
+    blocks[:, :256] = np.arange(256, dtype=np.uint8)
+    check_arith_case(blocks, np.array([3000, 2990], np.int32),
+                     np.full(2, 256, np.int32), 1,
+                     "arith M=256 all contexts order=1", garbage=True)
+    n += 1
+    # blocks that hold byte 255 through the batch entries (the stream's
+    # max-symbol byte is 0, read as 256)
+    blocks = np.random.default_rng(255).choice(
+        np.array([3, 7, 255], np.uint8), size=(5, 600), p=[0.7, 0.2, 0.1])
+    head = bytearray([0])
+    varint.put_uint(head, blocks.shape[1])
+    for order in (0, 1):
+        streams = batch.arith_compress_blocks(blocks, order=order,
+                                              engine="device")
+        if any(s[len(head)] != 0 for s in streams):
+            fail("arith: a block holding byte 255 has a max-symbol byte != 0")
+        if streams != [arith.compress(b, order) for b in blocks]:
+            fail(f"arith: byte-255 streams differ from the host coder's "
+                 f"(order {order})")
+        outs = batch.arith_uncompress_blocks(streams, engine="device")
+        if outs != [b.tobytes() for b in blocks]:
+            fail(f"arith: byte-255 blocks did not round-trip (order {order})")
+        n += 1
     jobs = testdata.synth_fqz_jobs(5, 30, 50, seed=3)
     parts = [fqz._replay_job(j, 4) for j in jobs]
     if any(p is None for p in parts):
@@ -307,13 +392,21 @@ def phase_kernels_rc(quick: bool) -> int:
     cases = [("fqz replay 5 x 30 x 50", [p[1] for p in parts]),
              ("deferred runs", [testdata.ff_run_triples(r)
                                 for r in (300, 1, 40)]),
-             ("random B=130 n=100", testdata.random_triples(130, 100, 1))]
+             ("deferred run of 5000", [testdata.ff_run_triples(5000)]),
+             ("random B=130 n=100", testdata.random_triples(130, 100, 1)),
+             ("totals 0/1/2/65535, frequencies 0", rc_edge_triples())]
+    # event counts at chunk - 1, chunk, chunk + 1 of the small chunks
+    cases += [(f"random n={k}", testdata.random_triples(1, k, k))
+              for k in (7, 8, 9, 31, 32, 33, 63, 64, 65)]
+    cases += [(f"random B={B} n=70", testdata.random_triples(B, 70, B))
+              for B in (1, 5, 192, 193)]
     if not quick:
         cases.append(("random B=5 n=1000", testdata.random_triples(5, 1000, 2)))
     for label, triples in cases:
         check_rc_case(triples, label)
         n += 1
-    return n
+    check_ring_flush_runs()
+    return n + 1
 
 
 def check_case_packed(blocks, sv, order, label, garbage=False) -> None:
@@ -1076,27 +1169,79 @@ def kernel_times_arith(blocks, order, launches):
     return entries
 
 
-def arith_thread_sweep(blocks):
-    """arith_enc / arith_dec ms at both orders by threads per CTA (one
-    block per thread either way): what ``arith_vmem.threads_per_cta``
-    chooses from."""
+def arith_inputs(blocks, order, pkg=None):
+    """The arith_dec inputs of a main-path batch: (stream, counts,
+    lens, max_syms, M), the stream from arith_enc."""
+    pkg = pkg or arith_vmem
     B, N = blocks.shape
     ms_np = blocks.max(axis=1).astype(np.int32) + 1
     M = int(ms_np.max())
     bt = torch.from_numpy(blocks).to(DEV)
     mt = torch.from_numpy(ms_np).to(DEV)
     lt = torch.full((B,), N, dtype=torch.int32, device=DEV)
+    by, cn = pkg.arith_enc(bt, lt, mt, M, order)
+    return by[:, :max(int(cn.max()), 1)].contiguous(), cn, lt, mt, M
+
+
+def contexts_per_block(blocks):
+    """Distinct order-1 contexts of each block: 0 and every byte but the
+    last."""
+    bt = torch.from_numpy(blocks[:, :-1]).to(DEV).to(torch.int64)
+    seen = torch.zeros((bt.shape[0], 256), dtype=torch.int32, device=DEV)
+    seen.scatter_(1, bt, 1)
+    seen[:, 0] = 1
+    return seen.sum(dim=1).cpu().numpy()
+
+
+def arith_dec_report(batches):
+    """arith_dec at each main-path shape: ms, the default pool and the
+    blocks whose contexts overflow it (order 1)."""
+    rep = {}
+    for name, blocks, order in batches:
+        B, N = blocks.shape
+        stream, cn, lt, mt, M = arith_inputs(blocks, order)
+        ms = cuda_ms(lambda: arith_vmem.arith_dec(stream, cn, lt, mt, M, N,
+                                                  order))
+        tpb = arith_vmem.threads_per_cta(B, DEV)
+        e = {"shape": f"B={B} N={N} M={M} order={order}", "ms": ms,
+             "threads": tpb}
+        if order:
+            pool = arith_vmem.default_pool(M, B, tpb, DEV)
+            ctx = contexts_per_block(blocks)
+            e.update(pool=pool, max_contexts=int(ctx.max()),
+                     blocks_over_pool=int((ctx > pool).sum()))
+        rep[name] = e
+        log(f"arith_dec {name}: {e}")
+    return rep
+
+
+def arith_thread_sweep(blocks):
+    """arith_enc / arith_dec ms at both orders by threads per CTA (one
+    block per thread either way): what ``arith_vmem.threads_per_cta``
+    chooses from for both; at order 1 arith_dec also by
+    pool size (the default, 5 rows: just synth4's contexts, and M: the
+    whole bank in shared memory, fewer blocks per SM), where a CTA's
+    shared memory allows it."""
+    B, N = blocks.shape
+    props = torch.cuda.get_device_properties(DEV)
+    limit = props.shared_memory_per_multiprocessor - 1024
     sweep = {"chosen": arith_vmem.threads_per_cta(B, DEV)}
     for order in (0, 1):
-        by, cn = arith_vmem.arith_enc(bt, lt, mt, M, order)
-        stream = by[:, :max(int(cn.max()), 1)].contiguous()
-        del by
-        for tpb in (1, 2, 4, 8, 32):
-            sweep[f"order{order} threads{tpb}"] = [
-                cuda_ms(lambda: arith_vmem.arith_enc(
-                    bt, lt, mt, M, order, threads=tpb), reps=3),
-                cuda_ms(lambda: arith_vmem.arith_dec(
-                    stream, cn, lt, mt, M, N, order, threads=tpb), reps=3)]
+        stream, cn, lt, mt, M = arith_inputs(blocks, order)
+        bt = torch.from_numpy(blocks).to(DEV)
+        for tpb in (1, 2, 4, 8, 16, 32):
+            sweep[f"order{order} threads{tpb} enc"] = cuda_ms(
+                lambda: arith_vmem.arith_enc(bt, lt, mt, M, order,
+                                             threads=tpb), reps=3)
+            pools = {"default": arith_vmem.default_pool(M, B, tpb, DEV),
+                     "5": 5, "M": M} if order else {"-": 0}
+            for pname, pool in pools.items():
+                if tpb * arith_vmem._dec_words(M, order, pool) * 4 > limit:
+                    continue
+                sweep[f"order{order} threads{tpb} dec pool{pname}"] = [
+                    pool, cuda_ms(lambda: arith_vmem.arith_dec(
+                        stream, cn, lt, mt, M, N, order, threads=tpb,
+                        pool=pool), reps=3)]
     return sweep
 
 
@@ -1135,12 +1280,90 @@ def kernel_times_rc(jobs, launches):
     return [e]
 
 
+def load_parent(path):
+    """The port's package of another checkout (the parent commit's,
+    unpacked with ``git archive``), imported as ``parent_port`` with its
+    own kernel library: (its arith_vmem, its rc_vmem)."""
+    import importlib
+    import importlib.util
+    root = Path(path).resolve() / "htscodecs_tpu_torch"
+    if not (root / "__init__.py").exists():
+        fail(f"--ab: no htscodecs_tpu_torch package under {path}")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("parent_port.ops.arith_vmem"),
+            importlib.import_module("parent_port.ops.rc_vmem"))
+
+
+def in_turns(runs, reps=5):
+    """Median ms of each of two runs, timed parent, change, change,
+    parent."""
+    ts = {k: [] for k in runs}
+    for k in ("parent", "change", "change", "parent"):
+        ts[k].append(cuda_ms(runs[k], reps=reps))
+    return {k: statistics.median(v) for k, v in ts.items()}
+
+
+def ab_run(parent: str, B: int) -> None:
+    """rc_enc and arith_dec of this checkout against those of the
+    checkout at ``parent``, on the main paths' inputs, in one process on
+    one card: outputs must be equal, times in turns."""
+    par_arith, par_rc = load_parent(parent)
+    N = 65536
+    q4 = testdata.synth_quality(B, N, seed=42)
+    wide = testdata.synth_wide(max(B // 4, 1), N, 40, seed=9)
+    res = {}
+    for name, blocks, order in (("synth4 order 1", q4, 1),
+                                ("synth4 order 0", q4, 0),
+                                ("wide41 order 1", wide, 1)):
+        stream, cn, lt, mt, M = arith_inputs(blocks, order)
+        runs = {"parent": lambda: par_arith.arith_dec(stream, cn, lt, mt, M,
+                                                      N, order),
+                "change": lambda: arith_vmem.arith_dec(stream, cn, lt, mt, M,
+                                                       N, order)}
+        want = torch.from_numpy(blocks).to(DEV)
+        for k, fn in runs.items():
+            if not torch.equal(fn(), want):
+                fail(f"--ab: arith_dec of the {k} did not decode {name}")
+        res[f"arith_dec {name}"] = in_turns(runs)
+        # this checkout's kernel by threads per CTA (default pool)
+        res[f"arith_dec {name} by threads"] = {
+            tpb: cuda_ms(lambda: arith_vmem.arith_dec(
+                stream, cn, lt, mt, M, N, order, threads=tpb), reps=3)
+            for tpb in (1, 2, 4, 8, 16)}
+        log(f"A/B arith_dec {name} B={blocks.shape[0]} M={M}: "
+            f"{res[f'arith_dec {name}']}; by threads per CTA "
+            f"{res[f'arith_dec {name} by threads']}")
+    del q4, wide
+    jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
+    parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
+    acc, f, tot, cn = convert.triples_from_reference([p[1] for p in parts],
+                                                     DEV)
+    del parts, jobs
+    runs = {"parent": lambda: par_rc.rc_enc(acc, f, tot, cn),
+            "change": lambda: rc_vmem.rc_enc(acc, f, tot, cn)}
+    if bytes_err(runs["parent"](), runs["change"]()):
+        fail("--ab: rc_enc of the parent and of the change differ")
+    res["rc_enc fqz"] = in_turns(runs)
+    log(f"A/B rc_enc fqz B={acc.shape[0]} events={acc.shape[1]}: "
+        f"{res['rc_enc fqz']}")
+    print(json.dumps({"ab_ms": res}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--blocks", type=int, default=4096,
                     help="blocks of 64 KiB in the main path's batches")
     ap.add_argument("--quick", action="store_true",
                     help="a thin slice of the kernel comparison grid")
+    ap.add_argument("--ab", metavar="DIR",
+                    help="only time rc_enc and arith_dec against those of "
+                         "the checkout at DIR (e.g. the parent commit "
+                         "unpacked with git archive), in turns")
     args = ap.parse_args()
 
     kind = torch.cuda.get_device_name(0)
@@ -1157,6 +1380,13 @@ def main() -> None:
             f"reused when their source hash matches: {prebuilt}")
     if not native.available():
         fail("host C library did not build")
+    if args.ab:
+        ab_run(args.ab, args.blocks)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     log(f"host C library built in {native.build_seconds:.1f} s")
     cuda_build.get_lib()
     log(f"CUDA kernel library built in {cuda_build.build_seconds:.1f} s")
@@ -1229,7 +1459,6 @@ def main() -> None:
     launches["arith"], _ = run_main_path(ARITH, "synth4 order 1", q4, 1, 256)
     run_main_path(ARITH, "synth4 order 0", q4, 0, 256)
     run_main_path(ARITH, "wide41 order 1", wide, 1, 256)
-    del wide
 
     # fqzcomp_qual: host model replay + the rc_enc kernel.  192 jobs of
     # 10000 records x 150 values (the CRAM default slice of 10000 reads
@@ -1250,6 +1479,10 @@ def main() -> None:
     build_ms = table_build_ms(q4)
     entries += kernel_times8(q4, 1, launches)
     entries += kernel_times_arith(q4, 1, launches["arith"])
+    dec_rep = arith_dec_report([("synth4 order 1", q4, 1),
+                                ("synth4 order 0", q4, 0),
+                                ("wide41 order 1", wide, 1)])
+    del wide
     sweep = arith_thread_sweep(q4)
     del q4
     entries += kernel_times_rc(jobs, launches["fqz"])
@@ -1271,7 +1504,9 @@ def main() -> None:
     print(json.dumps({"table_route_sweep_s": route_sweep}), flush=True)
     log(f"device table build, ms: {build_ms}")
     print(json.dumps({"table_build_ms": build_ms}), flush=True)
-    log(f"arith [enc, dec] ms by order and threads per CTA: {sweep}")
+    print(json.dumps({"arith_dec_main_paths": dec_rep}), flush=True)
+    log(f"arith enc ms, dec [pool, ms] by order, threads per CTA and pool: "
+        f"{sweep}")
     print(json.dumps({"arith_threads_per_cta_ms": sweep}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

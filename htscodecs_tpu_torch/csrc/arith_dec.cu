@@ -6,16 +6,40 @@
 // which is order-0 only, caps the model at 64 entries and the stream at
 // 49152 bytes, reads stream bytes through a one-hot window and divides
 // through float reciprocals with fix-up rounds; and the order-1 case of
-// the XLA scan (ops/arith_jax.py, _dec_scan).  Here one thread per block
-// runs the block's chain: range / total and code / range are the card's
-// 32-bit divides, the symbol is found by walking the cumulative
-// frequencies as c_simple_model.h does, at most two stream bytes are
-// read per symbol straight from the block's row, and the model update is
-// the encoder's (rc_core.cuh).  Model width up to 256 at run time; at
-// order 1 the context's model is a row of the block's bank.
+// the XLA scan (ops/arith_jax.py, _dec_scan).
 //
-// Bound on this card: memory traffic (stream bytes in, B*K bytes out);
-// in fact latency-bound, as arith_enc.
+// Bound on this card: memory traffic (stream bytes in, B*K bytes out).
+// In fact each block is one serial chain per symbol: range / total and
+// code / range, a walk of the cumulative frequencies as c_simple_model.h
+// walks them, the model update (rc_core.cuh), at most two stream bytes.
+// One thread runs one block's chain, `blockDim.x` blocks per CTA, and
+// the design keeps memory latency and divides off the chain:
+//
+//   - the models live in shared memory, initialised by the kernel
+//     (entry j = j << 16 | (j < max_syms), total max_syms): no bank is
+//     built or read.  A row holds the model and the reciprocals of its
+//     total and of the total + 16, the three in one 16-byte load.
+//     Order 0: one row per block.
+//     Order 1: a 256-byte context -> slot map and a pool of `pool` rows
+//     per block; a row is claimed the first time its context occurs
+//     (context 0 is always first and owns slot 0, so a map entry of 0
+//     means "not yet" for every other context).  Contexts past the pool
+//     get rows of a global bank (`gbank`, B x (M - pool) rows),
+//     initialised the same way on first use; the step runs on shared or
+//     global rows through the same inlined code;
+//   - neither divide stays (dec_symbol): range / total through the
+//     row's reciprocal and one correction, code / range not at all (the
+//     walk compares products); the reciprocals come from a table in
+//     global memory one symbol ahead of their use;
+//   - the next two stream bytes are loaded through the read-only path
+//     one symbol ahead of their use;
+//   - decoded bytes are stored as the chain produces them: gathering
+//     them in shared memory into 16-byte stores put more on the chain
+//     than it saved (28.8 against 26.4 ms at B = 4096 x 64 KiB, order 1,
+//     on an H100: PERF.md);
+//   - each thread's region of shared memory is an odd number of 16-byte
+//     units, so the 16-byte loads of the threads of a warp do not meet
+//     in one bank.
 //
 // Invalid input is defined as the JAX device functions define it, and
 // the plain version does the same: a read at or past the block's byte
@@ -27,87 +51,298 @@
 
 #include "rc_core.cuh"
 
+// The kernel's shared memory: `words` words of models per thread.
+extern __shared__ __align__(16) uint32_t dsmem[];
+
+namespace {
+
+struct Dec {
+    uint32_t code, range, b0, b1;   // b0, b1: the next two stream bytes
+    int pos;
+};
+
+__device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ by,
+                                            int pos, int nb)
+{
+    return pos < nb ? (uint32_t)__ldg(by + pos) : 0u;
+}
+
+// A model row in shared memory, by word index into dsmem, and one in
+// the global bank, by pointer.
+struct SRow {
+    int at;
+    __device__ __forceinline__ uint32_t& operator[](int j) const { return dsmem[at + j]; }
+    __device__ __forceinline__ uint4 head(int M) const
+    {
+        return *reinterpret_cast<const uint4*>(&dsmem[at + M]);
+    }
+};
+
+struct GRow {
+    uint32_t* at;
+    __device__ __forceinline__ uint32_t& operator[](int j) const { return at[j]; }
+    __device__ __forceinline__ uint4 head(int M) const
+    {
+        return *reinterpret_cast<const uint4*>(at + M);
+    }
+};
+
+// A row of a decoder's model: the SIMPLE_MODEL row (M + 1 words), then
+// the reciprocals (rc_udiv_recip) of max(total, 1) at M + 1 and of
+// max(total + 16, 1) at M + 2.  Rows are row_stride(M) words apart and
+// start row_pad(M) words past a 16-byte boundary, so that row + M is
+// 16-byte aligned (word M + 3 is in the row: the 16-byte load reads it).
+__host__ __device__ __forceinline__ int row_stride(int M)
+{
+    return (M + 4 + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int row_pad(int M)
+{
+    return (4 - (M & 3)) & 3;
+}
+
+template <class Row>
+__device__ __forceinline__ void dec_row_init(Row row, int M, int max_syms)
+{
+    model_init(row, M, max_syms);
+    row[M + 1] = rc_udiv_recip(max((uint32_t)max_syms, 1u));
+    row[M + 2] = rc_udiv_recip(max((uint32_t)max_syms + MODEL_STEP, 1u));
+}
+
+// A reciprocal on its way from `rtab` to a row: stored one symbol after
+// its load was issued, so that the load's latency is off the chain.  A
+// row in shared memory is `sat` (a word index), one in the global bank
+// `gat` (null otherwise).
+struct Pending {
+    int sat;
+    uint32_t* gat;
+    uint32_t val;
+
+    __device__ __forceinline__ void store() const
+    {
+        if (gat) *gat = val;
+        else dsmem[sat] = val;
+    }
+    __device__ __forceinline__ void target(SRow r, int M)
+    {
+        sat = r.at + M + 2;
+        gat = nullptr;
+    }
+    __device__ __forceinline__ void target(GRow r, int M) { gat = r.at + M + 2; }
+};
+
+// One symbol from the model row `row`; the row is updated.  At order 1
+// the map entry of the decoded symbol, the next context, is loaded
+// before the update: `next` gets it.
+//
+// No divide is left on the chain: r = range / total takes the row's
+// reciprocal (rc_udiv); the reference's target = min(code / r, 65535)
+// is only compared with cumulative frequencies x, and x <= target is
+// x * r <= code: x is at most the sum of the row's frequencies, which
+// never passes the total or 65535 (rc_core.cuh), so x <= 65535 and
+// x * r <= range fits in 32 bits.  Past the first symbol the range is
+// at least 2^16 > total, so the undivided case (range < total, target
+// 0) is a branch that valid and invalid streams alike never take after
+// the first symbol.  The update moves the row's second reciprocal into
+// the first (the total grows by 16 unless the row is halved, which
+// divides afresh), and the reciprocal of total + 32 comes from `rtab`
+// (rtab[t] = rc_udiv_recip(max(t, 1))) through `pend`, which the caller
+// stores before the next symbol.
+template <int ORDER, class Row>
+__device__ __forceinline__ uint32_t dec_symbol(Row row, int M, Dec& d,
+                                               const uint8_t* __restrict__ by,
+                                               int nb, int map, int& next,
+                                               Pending& pend,
+                                               const uint32_t* __restrict__ rtab)
+{
+    // the total and both reciprocals in one load, beside the first entry
+    const uint4 h = row.head(M);
+    uint32_t e = row[0];
+    const uint32_t tot = h.x;
+    pend.target(row, M);
+    pend.val = __ldg(rtab + min(tot + 2u * MODEL_STEP, 0xFFFFu));
+    const uint32_t total = max(tot, 1u);
+    int p = 0;
+    uint32_t acc = 0u, prev = 0u, r;
+    if (d.range >= total) {
+        r = rc_udiv(d.range, total, h.y);
+        for (;;) {
+            const uint32_t x = acc + (e & 0xFFFFu);
+            if (x * r > d.code) break;
+            acc = x;
+            prev = e;
+            e = row[++p];       // row[M] is the total: in bounds
+            if (p == M) break;
+        }
+    } else {
+        r = d.range;
+        while (p < M && (e & 0xFFFFu) == 0u) {
+            prev = e;
+            e = row[++p];
+        }
+    }
+    const uint32_t sym = p < M ? e >> 16 : 0u;
+    if (ORDER) next = reinterpret_cast<const uint8_t*>(dsmem)[map + (int)sym];
+    d.code -= acc * r;
+    d.range = r * (p < M ? max(e & 0xFFFFu, 1u) : 1u);
+    if (d.range < RC_TOP) {
+        d.code = (d.code << 8) | d.b0;
+        d.range <<= 8;
+        ++d.pos;
+        if (d.range < RC_TOP) {
+            d.code = (d.code << 8) | d.b1;
+            d.range <<= 8;
+            ++d.pos;
+            d.b0 = byte_at(by, d.pos, nb);
+        } else {
+            d.b0 = d.b1;
+        }
+        d.b1 = byte_at(by, d.pos + 1, nb);
+    }
+    const uint32_t nt = model_update(row, M, p, e, prev, tot);
+    if (nt == tot + MODEL_STEP) {
+        row[M + 1] = h.z;
+    } else {
+        row[M + 1] = rc_udiv_recip(max(nt, 1u));
+        pend.val = rc_udiv_recip(max(nt + MODEL_STEP, 1u));
+    }
+    return sym;
+}
+
+}  // namespace
+
 template <int ORDER>
 __global__ void arith_dec_kernel(const uint8_t* __restrict__ stream,
                                  const int32_t* __restrict__ counts,
                                  const int32_t* __restrict__ lens,
-                                 uint32_t* __restrict__ bank,
+                                 const int32_t* __restrict__ msyms,
+                                 uint32_t* __restrict__ gbank,
+                                 const uint32_t* __restrict__ rtab,
                                  uint8_t* __restrict__ out,
-                                 int B, int W, int K, int M)
+                                 int B, int W, int K, int M, int pool,
+                                 int words)
 {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const uint8_t* by = stream + (size_t)b * W;
     const int nb = min(max(counts[b], 0), W);
-    uint8_t* o = out + (size_t)b * K;
-    const int M1 = M + 1;
-    uint32_t* mdl = bank + (size_t)b * (ORDER ? M : 1) * M1;
+    const int ms = msyms[b];
+    const int S = row_stride(M);
+    uint8_t* const sbytes = reinterpret_cast<uint8_t*>(dsmem);
+    const int mine = threadIdx.x * words;                   // word index
+    const int map = 4 * mine;                           // byte index, order 1
+    const int rows = mine + (ORDER ? 64 : 0) + row_pad(M);
+    uint32_t* grows = ORDER ? gbank + (size_t)b * (M - pool) * S + row_pad(M)
+                            : nullptr;
+    if (ORDER)
+        for (int j = 0; j < 64; ++j) dsmem[mine + j] = 0u;
+    dec_row_init(SRow{rows}, M, ms);
+    int nused = 1;
+    Pending pend{rows + M + 2, nullptr, dsmem[rows + M + 2]};
 
     // RC_StartDecode: five bytes prime the code; a stream too short to
     // hold them and one more decodes nothing
     const int n = nb >= 6 ? min(max(lens[b], 0), K) : 0;
-    uint32_t code = 0u;
+    Dec d;
+    d.code = 0u;
     if (nb >= 6)
-        for (int k = 0; k < 5; ++k) code = (code << 8) | by[k];
-    uint32_t range = 0xFFFFFFFFu;
-    int pos = 5;
+        for (int k = 0; k < 5; ++k) d.code = (d.code << 8) | by[k];
+    d.range = 0xFFFFFFFFu;
+    d.pos = 5;
+    d.b0 = byte_at(by, 5, nb);
+    d.b1 = byte_at(by, 6, nb);
 
-    int ctx = 0;
+    uint8_t* o = out + (size_t)b * K;
+    int slot = 0, ctx = 0;
     for (int i = 0; i < n; ++i) {
-        uint32_t* row = mdl + (ORDER ? ctx * M1 : 0);
-        const uint32_t total = max(row[M], 1u);
-        uint32_t r = range, target = 0u;
-        if (range >= total) {
-            r = range / total;
-            target = min(code / r, 0xFFFFu);
+        int next = 0;
+        if (ORDER && slot == 0 && ctx != 0) {
+            slot = nused++;
+            sbytes[map + ctx] = (uint8_t)slot;
+            if (slot < pool) dec_row_init(SRow{rows + slot * S}, M, ms);
+            else dec_row_init(GRow{grows + (slot - pool) * S}, M, ms);
         }
-        int p = 0;
-        uint32_t acc = 0u;
-        uint32_t e = row[0];
-        while (p < M && acc + (e & 0xFFFFu) <= target) {
-            acc += e & 0xFFFFu;
-            e = row[++p];       // row[M] is the total: in bounds
-        }
-        const uint32_t sym = p < M ? e >> 16 : 0u;
-        code -= acc * r;
-        range = r * (p < M ? max(e & 0xFFFFu, 1u) : 1u);
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-            if (range < RC_TOP) {
-                code = (code << 8) | (pos < nb ? (uint32_t)by[pos] : 0u);
-                ++pos;
-                range <<= 8;
-            }
-        model_update(row, M, p, e);
+        pend.store();
+        uint32_t sym;
+        if (!ORDER || slot < pool)
+            sym = dec_symbol<ORDER>(SRow{rows + slot * S}, M, d, by, nb, map,
+                                    next, pend, rtab);
+        else
+            sym = dec_symbol<ORDER>(GRow{grows + (slot - pool) * S}, M, d, by,
+                                    nb, map, next, pend, rtab);
         o[i] = (uint8_t)sym;
-        if (ORDER) ctx = (int)sym;
+        slot = next;
+        ctx = (int)sym;
     }
     for (int i = n; i < K; ++i) o[i] = 0;
 }
 
+// Shared-memory words of one block's models: order 1 the 256-byte map
+// and `pool` rows, order 0 one row, with the row padding; a multiple of
+// 4 (16-byte loads) and an odd one of 4, so that the 16-byte loads of 8
+// threads fall in different banks.  ops/arith_vmem.py (_dec_words)
+// holds the same rule.
+static int arith_dec_words(int M, int order, int pool)
+{
+    const int w = (order ? 64 + pool * row_stride(M) : row_stride(M))
+                  + row_pad(M);
+    const int w4 = (w + 3) / 4;
+    return 4 * (w4 | 1);
+}
+
 // stream (B,W) u8, counts (B,) i32 bytes that belong to each block,
-// lens (B,) i32 bytes to decode, bank (B, order ? M : 1, M+1) u32 (the
-// models' initial state, updated in place), out (B,K) u8.
-// Returns cudaGetLastError().
+// lens (B,) i32 bytes to decode, msyms (B,) i32 the models' initial
+// width, gbank (B, M - pool, row_stride(M)) u32 + 4 words scratch (order 1 with
+// pool < M; may be null otherwise), rtab (65536,) u32 the reciprocals
+// rc_udiv_recip(max(t, 1)), out (B,K) u8; pool rows of shared memory
+// per block at order 1 (1..M).  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for bad arguments).
 extern "C" int arith_dec_launch(const void* stream, const void* counts,
-                                const void* lens, void* bank, void* out,
-                                int B, int W, int K, int M, int order,
-                                int tpb, void* cuda_stream)
+                                const void* lens, const void* msyms,
+                                void* gbank, const void* rtab, void* out,
+                                int B, int W, int K,
+                                int M, int order, int tpb, int pool,
+                                void* cuda_stream)
 {
     if (B <= 0 || K <= 0) return 0;
     if (W < 1 || M < 1 || M > 256 || tpb < 1 || tpb > 1024)
         return (int)cudaErrorInvalidValue;
+    if (rtab == nullptr
+        || (order && (pool < 1 || pool > M || (pool < M && gbank == nullptr))))
+        return (int)cudaErrorInvalidValue;
+    if (!order) pool = M;
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    const int words = arith_dec_words(M, order, pool);
+    const size_t smem = (size_t)tpb * words * 4;
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)cuda_stream;
     const unsigned grid = rc_grid(B, tpb);
-    if (order)
-        arith_dec_kernel<1><<<grid, tpb, 0, st>>>(
+    if (order) {
+        cudaFuncSetAttribute(arith_dec_kernel<1>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+        cudaFuncSetAttribute(arith_dec_kernel<1>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+        arith_dec_kernel<1><<<grid, tpb, smem, st>>>(
             (const uint8_t*)stream, (const int32_t*)counts,
-            (const int32_t*)lens, (uint32_t*)bank, (uint8_t*)out,
-            B, W, K, M);
-    else
-        arith_dec_kernel<0><<<grid, tpb, 0, st>>>(
+            (const int32_t*)lens, (const int32_t*)msyms, (uint32_t*)gbank,
+            (const uint32_t*)rtab, (uint8_t*)out, B, W, K, M, pool, words);
+    } else {
+        cudaFuncSetAttribute(arith_dec_kernel<0>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+        cudaFuncSetAttribute(arith_dec_kernel<0>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+        arith_dec_kernel<0><<<grid, tpb, smem, st>>>(
             (const uint8_t*)stream, (const int32_t*)counts,
-            (const int32_t*)lens, (uint32_t*)bank, (uint8_t*)out,
-            B, W, K, M);
+            (const int32_t*)lens, (const int32_t*)msyms, (uint32_t*)gbank,
+            (const uint32_t*)rtab, (uint8_t*)out, B, W, K, M, pool, words);
+    }
     return (int)cudaGetLastError();
 }

@@ -49,7 +49,8 @@ __global__ void arith_enc_kernel(const uint8_t* __restrict__ blocks,
     const int M1 = M + 1;
     uint32_t* mdl = bank + (size_t)b * (ORDER ? M : 1) * M1;
     RcEnc rc;
-    rc_enc_init(rc, out + (size_t)b * cap);
+    rc_enc_init(rc);
+    RowOut o{out + (size_t)b * cap, 0};
 
     int ctx = 0;
     for (int i = 0; i < n; ++i) {
@@ -62,11 +63,12 @@ __global__ void arith_enc_kernel(const uint8_t* __restrict__ blocks,
             acc += e & 0xFFFFu;
             e = row[++p];       // row[M] is the total: in bounds
         }
-        rc_encode(rc, acc, p < M ? (e & 0xFFFFu) : 0u, row[M]);
+        rc_encode(rc, o, acc, p < M ? (e & 0xFFFFu) : 0u, row[M]);
         model_update(row, M, p, e);
         if (ORDER) ctx = p < M ? (int)sym : 0;
     }
-    counts[b] = rc_finish(rc);
+    rc_finish(rc, o);
+    counts[b] = o.n;
 }
 
 // blocks (B,N) u8, lens (B,) i32, bank (B, order ? M : 1, M+1) u32 (the

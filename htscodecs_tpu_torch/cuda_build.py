@@ -110,9 +110,9 @@ def _declare(lib) -> None:
     lib.arith_enc_launch.restype = _int
     lib.arith_enc_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
     lib.arith_dec_launch.restype = _int
-    lib.arith_dec_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
+    lib.arith_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
     lib.rc_enc_launch.restype = _int
-    lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 4 + [_vp]
+    lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
     lib.rans16_dec_packed_launch.restype = _int
     lib.rans16_dec_packed_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
     lib.rans16_enc_packed_launch.restype = _int

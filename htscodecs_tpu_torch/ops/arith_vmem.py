@@ -18,12 +18,31 @@ alphabet, its stream length or its carry pattern.
 ``arith_dec``  csrc/arith_dec.cu
     replaces ``_build_dec_kernel`` / ``_dec_vmem`` and ``_dec_scan``.
     One thread per block: range / total, code / range, search by
-    cumulative frequency, the same model update, at most two stream
-    bytes per symbol read straight from the block's row.
+    cumulative frequency, the same model update, with the models in
+    shared memory, initialised by the kernel (no bank is built): one row
+    per block at order 0; at order 1 a context -> slot map and a pool of
+    ``pool`` rows per block, claimed as contexts first occur, and the
+    contexts past the pool in a global bank that the wrapper allocates
+    only when the pool is smaller than M.  The next stream bytes are
+    loaded a symbol ahead.  No divide is left on the chain: range /
+    total through a reciprocal kept beside each row's total
+    (``_recip_table`` holds every total's, read a symbol ahead), code /
+    range not at all (the walk compares products).
 
 Both are bound by memory traffic on paper and by the latency of one
 serial chain per thread in fact (see the source notes).  The coder core
 (``csrc/rc_core.cuh``) is shared with ``ops/rc_vmem.py``.
+
+The order-1 pool (``pool_rows``): the launch aims to hold all B blocks
+on the card at once.  With ``tpb`` blocks per CTA, ceil(B / tpb) CTAs
+spread over the SMs, ceil(CTAs / SMs) per SM; each CTA gets an even
+share of the SM's shared memory less the 1 KB the runtime keeps per
+CTA (at most the 227 KB one CTA may hold), each block a ``tpb``-th of
+that less its 256-byte map and 44 bytes of padding, in rows of M + 3
+words (the model and the reciprocals of its total and of the total +
+16) rounded up to 16 bytes: at least 1 row and at most M.  On an H100
+(228 KB per SM, 132 SMs) B = 4096 blocks at 4 per CTA get 22 rows of
+width 71, where synth4's blocks use 5 contexts.
 
 Each wrapper uses its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  The plain
@@ -55,15 +74,19 @@ STEP = 16
 NSYM = 256          # widest model (the C model's NSYM)
 
 # warps per SM that the launch aims for: on an H100, 4096 blocks ran
-# fastest at 4 threads per CTA (8 warps per SM); 31 warps per SM were
-# limited by the SM's instruction rate, 1 warp of 32 divergent threads by
-# latency (chip_smoke.py prints the sweep)
+# fastest at 4 threads per CTA (8 warps per SM) in both kernels, arith_enc
+# with its model bank in global memory and arith_dec with its models in
+# shared memory; 31 warps per SM were limited by the SM's instruction
+# rate, 1 warp of 32 divergent threads by latency; arith_dec on 1024
+# blocks ran fastest at 1 thread per CTA, as this rule gives
+# (chip_smoke.py prints the sweeps)
 _WARPS_PER_SM = 8
 
 
 def threads_per_cta(B: int, dev: torch.device) -> int:
-    """Threads per CTA of the one-thread-per-block coder kernels: the
-    smallest power of two (at most 32) that keeps the launch within
+    """Threads per CTA of the one-thread-per-block coder kernels
+    (arith_enc, arith_dec): the smallest power of two (at most 32) that
+    keeps the launch within
     ``_WARPS_PER_SM`` warps per SM.  Each thread runs a long divergent
     loop, so blocks that share a warp serialise where warps overlap."""
     slots = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -72,6 +95,54 @@ def threads_per_cta(B: int, dev: torch.device) -> int:
     while tpb < 32 and -(-B // tpb) > slots:
         tpb *= 2
     return tpb
+
+
+_CTA_RESERVED = 1024   # shared memory the runtime keeps per CTA
+
+
+def _row_stride(M: int) -> int:
+    """Words between two model rows of ``arith_dec``: M entries, the
+    total, two reciprocals, rounded up to 16 bytes (csrc/arith_dec.cu:
+    row_stride)."""
+    return (M + 7) & ~3
+
+
+def _dec_words(M: int, order: int, pool: int) -> int:
+    """Shared-memory words of one block's models in ``arith_dec``
+    (csrc/arith_dec.cu: arith_dec_words): the 64-word context map and
+    ``pool`` rows at order 1, one row at order 0, after a row padding of
+    (-M) % 4 words; an odd number of 16-byte units."""
+    w = (64 + pool * _row_stride(M) if order else _row_stride(M)) + (-M) % 4
+    return 4 * (-(-w // 4) | 1)
+
+
+def pool_rows(M: int, B: int, tpb: int, smem_per_sm: int, sms: int) -> int:
+    """Order-1 model rows in shared memory per block of an ``arith_dec``
+    launch of B blocks at ``tpb`` per CTA on a card of ``sms`` SMs with
+    ``smem_per_sm`` bytes each (the rule in the module docstring)."""
+    ctas = -(-B // tpb)
+    per_sm = max(1, -(-ctas // sms))
+    per_cta = smem_per_sm // per_sm - _CTA_RESERVED
+    # a block's words: the map, the row padding and at most 8 words of
+    # rounding besides the rows
+    words = per_cta // tpb // 4 - 64 - 3 - 8
+    return max(1, min(M, words // _row_stride(M)))
+
+
+def default_pool(M: int, B: int, tpb: int, dev: torch.device) -> int:
+    """``pool_rows`` for the card of ``dev``."""
+    p = torch.cuda.get_device_properties(dev)
+    return pool_rows(M, B, tpb, p.shared_memory_per_multiprocessor,
+                     p.multi_processor_count)
+
+
+def _recip_table(dev: torch.device) -> torch.Tensor:
+    """(65536,) int32 bits of floor((2^32 - 1) / max(t, 1)) on ``dev``:
+    the reciprocals of every model total that ``arith_dec`` reads
+    (``csrc/rc_core.cuh``: rc_udiv_recip)."""
+    q = 0xFFFFFFFF // torch.arange(65536, dtype=torch.int64,
+                                   device=dev).clamp(min=1)
+    return ((q + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
 
 
 def _require_model(name: str, msyms, M: int, order: int, B: int, dev) -> None:
@@ -265,16 +336,19 @@ def _arith_enc_plain(blocks, lens, msyms, M: int, order: int):
 # arith_dec
 
 def arith_dec(stream, counts, lens, msyms, M: int, K: int, order: int,
-              threads: int = 0):
+              threads: int = 0, pool: int = 0):
     """Decode B blocks.
 
     stream (B, W) uint8 (each row a payload, after the max-symbol byte),
     counts (B,) int32 (bytes that belong to each block: a read past them
     gives 0), lens (B,) int32 (bytes to decode, at most K), msyms (B,)
     int32, M the model width (1..256), ``threads`` as in ``arith_enc``.
-    Returns (B, K) uint8; bytes past
-    a block's length are 0, and a block with fewer than 6 stream bytes
-    decodes nothing."""
+    ``pool``: order-1 model rows in shared memory per block (1..M; the
+    contexts past them take rows of a global bank); 0, as every caller
+    but the comparison grid of chip_smoke.py leaves it, takes
+    ``default_pool``.  Neither changes the result.  Returns (B, K)
+    uint8; bytes past a block's length are 0, and a block with fewer
+    than 6 stream bytes decodes nothing."""
     B, W = stream.shape
     dev = stream.device
     _require(stream, "stream", torch.uint8, (B, W), dev)
@@ -283,15 +357,23 @@ def arith_dec(stream, counts, lens, msyms, M: int, K: int, order: int,
     _require_model("arith_dec", msyms, M, order, B, dev)
     if W < 1 or K < 0:
         raise ValueError("arith_dec: bad geometry")
+    if not 0 <= pool <= M:
+        raise ValueError(f"arith_dec: pool must be in 0..{M}")
     if dev.type == "cpu":
         return _arith_dec_plain(stream, counts, lens, msyms, M, K, order)
-    bank = convert.model_bank(msyms, M, order)
+    tpb = threads or threads_per_cta(B, dev)
+    pool = (pool or default_pool(M, B, tpb, dev)) if order else M
+    gbank = (torch.empty(B * (M - pool) * _row_stride(M) + 4,
+                         dtype=torch.int32, device=dev)
+             if pool < M else None)
+    rtab = _recip_table(dev)
     out = torch.empty((B, K), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = cuda_build.get_lib().arith_dec_launch(
             stream.data_ptr(), counts.data_ptr(), lens.data_ptr(),
-            bank.data_ptr(), out.data_ptr(), B, W, K, M, order,
-            threads or threads_per_cta(B, dev), _stream(stream))
+            msyms.data_ptr(), None if gbank is None else gbank.data_ptr(),
+            rtab.data_ptr(), out.data_ptr(), B, W, K, M, order, tpb, pool,
+            _stream(stream))
     cuda_build.check(err, "arith_dec")
     LAUNCHES["arith_dec"] += 1
     return out

@@ -281,3 +281,80 @@ def test_wrappers_take_the_plain_versions_on_cpu_tensors():
         port.arith_enc(bt, lt, mt, 257, 0)
     with pytest.raises(ValueError):
         port.arith_enc(bt, lt.to(torch.int64), mt, M, 0)
+
+
+# ---------------------------------------------------------------------------
+# the order-1 model pool of arith_dec
+
+def _smem_bytes(M, rows):
+    """A block's shared memory in the kernel: the map and the rows."""
+    return 4 * port._dec_words(M, 1, rows)
+
+
+@pytest.mark.parametrize("smem_per_sm,sms", [(233472, 132), (167936, 108),
+                                             (65536, 4)])
+def test_pool_rule_bounds(smem_per_sm, sms):
+    prev = {}
+    for M in (1, 2, 40, 71, 74, 255, 256):
+        for tpb in (1, 4, 8, 32):
+            for B in (1, 7, 130, 1024, 4096, 65536):
+                rows = port.pool_rows(M, B, tpb, smem_per_sm, sms)
+                assert 1 <= rows <= M
+                ctas = -(-B // tpb)
+                per_sm = max(1, -(-ctas // sms))
+                if rows > 1:
+                    # every CTA the launch aims to hold per SM fits
+                    assert per_sm * (tpb * _smem_bytes(M, rows) + 1024) \
+                        <= smem_per_sm
+                # more blocks never get more rows
+                assert rows <= prev.get((M, tpb), M)
+                prev[(M, tpb)] = rows
+    # the H100's numbers for synth4 in the module docstring
+    if (smem_per_sm, sms) == (233472, 132):
+        assert port.pool_rows(71, 4096, 4, smem_per_sm, sms) == 22
+
+
+def test_pool_overflow_input_equals_the_xla_engine():
+    """Blocks over 40 symbols use more contexts than a small pool: the
+    decode the kernel's global-bank route must give (chip_smoke.py runs
+    it with pools of 1 and 2 rows)."""
+    blocks, lens, ms = testdata.arith_blocks(3, 300, 40, seed=40)
+    ctx = [len({0} | set(blocks[b, :lens[b] - 1].tolist())) for b in range(3)]
+    assert min(ctx) > 2
+    enc = ref_jax.enc_batch(blocks, lens, ms, 1)
+    got = port.dec_batch(enc, lens.tolist(), ms.tolist(), 1, device="cpu")
+    want = ref_jax.dec_batch(enc, lens.tolist(), ms.tolist(), 1)
+    for b in range(3):
+        np.testing.assert_array_equal(got[b, :lens[b]], want[b, :lens[b]])
+        np.testing.assert_array_equal(got[b, :lens[b]], blocks[b, :lens[b]])
+    with pytest.raises(ValueError, match="pool"):
+        port.arith_dec(*(torch.from_numpy(x) for x in (
+            np.zeros((3, 8), np.uint8), np.full(3, 8, np.int32),
+            lens, ms)), int(ms.max()), 300, 1, pool=int(ms.max()) + 1)
+
+
+def test_decoder_division_free_step_is_exact():
+    """arith_dec.cu's step without divides, in numpy: r = range // total
+    through the reciprocal table and one correction, and the walk's
+    test x <= min(code // r, 65535) as x <= 65535 and x * r <= code for
+    every cumulative frequency x up to the total (x * r <= range: no
+    32-bit overflow)."""
+    tab = port._recip_table(torch.device("cpu")).numpy().view(np.uint32)
+    t = np.arange(65536, dtype=np.uint64)
+    np.testing.assert_array_equal(
+        tab.astype(np.uint64), np.uint64(0xFFFFFFFF) // np.maximum(t, 1))
+    rng = np.random.default_rng(17)
+    n = 200000
+    total = rng.integers(1, 65536, n).astype(np.uint64)
+    rnge = rng.integers(1 << 24, 1 << 32, n).astype(np.uint64)
+    rnge = np.maximum(rnge, total)
+    m = tab[total.astype(np.int64)].astype(np.uint64)
+    q = (rnge * m) >> np.uint64(32)
+    r = q + (rnge - q * total >= total)
+    np.testing.assert_array_equal(r, rnge // total)
+    code = (rng.random(n) * rnge).astype(np.uint64)
+    x = (rng.random(n) * (total + 1)).astype(np.uint64)
+    assert (x * r <= rnge).all() and (x * r < 2**32).all()
+    want = x <= np.minimum(code // r, 65535)
+    got = (x <= 65535) & (x * r <= code)
+    np.testing.assert_array_equal(got, want)

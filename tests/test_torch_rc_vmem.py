@@ -1,7 +1,8 @@
 """The port's range-coder chain over replayed triples (ops/rc_vmem.py,
 plain version on device="cpu") against the JAX package's Pallas kernel
-in interpret mode, the Python RangeEncoder and the native fqz encoder,
-after tests/test_rc_vmem.py.  Exact equality throughout."""
+in interpret mode, the Python RangeEncoders of both packages and the
+native fqz encoder, after tests/test_rc_vmem.py; and the kernel's
+reciprocal division in plain form.  Exact equality throughout."""
 
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from htscodecs_tpu import native as ref_native
 from htscodecs_tpu.ops import rc_vmem as ref_rc_vmem
+from htscodecs_tpu.ops.range_coder import RangeEncoder as RefRangeEncoder
 from htscodecs_tpu_torch import native as port_native
 from htscodecs_tpu_torch.models import fqz as port_fqz
 from htscodecs_tpu_torch.ops import convert
@@ -92,3 +94,69 @@ def test_wrapper_and_conversion():
         [_python_rc(t) for t in tris]
     with pytest.raises(ValueError):
         port.rc_enc(acc.to(torch.int32), f, tot, cn)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's division and the inputs of its comparison grid
+
+def test_reciprocal_division_is_exact():
+    """rc_enc.cu divides the range by a 16-bit total through a staged
+    reciprocal and one correction: exact for every total, a total of 0
+    taken as 1, at the edges of each quotient and at random ranges."""
+    d = np.arange(65536, dtype=np.int64)[:, None]
+    edges = np.concatenate(
+        [np.maximum(d - 1, 0), d, d + 1,
+         np.broadcast_to(np.array([0, 1, 2**24 - 1, 2**24, 2**32 - 1]),
+                         (65536, 5)),
+         np.random.default_rng(5).integers(0, 2**32, (65536, 8))], axis=1)
+    got = port._udiv_recip_plain(edges, d)
+    want = edges // np.maximum(d, 1)
+    np.testing.assert_array_equal(got.astype(np.int64), want)
+
+
+def _ref_rc(tri):
+    """The JAX package's Python coder.  Like its Pallas kernel
+    (htscodecs_tpu/ops/rc_vmem.py: jnp.maximum(tot, 1), jnp.maximum(f,
+    1)) the port takes a total or a frequency of 0 as 1; the Python
+    coder would divide by zero, so it is handed the 1."""
+    rc = RefRangeEncoder()
+    for a, f, t in zip(*(x.tolist() for x in tri)):
+        rc.encode(a, max(f, 1), max(t, 1))
+    return rc.finish()
+
+
+def _tri(rows):
+    return tuple(np.array(c, np.uint16) for c in zip(*rows))
+
+
+def _grid_case(case):
+    rng = np.random.default_rng(11)
+    if case == "long_deferred_run":
+        return [testdata.ff_run_triples(5000)]
+    if case == "ragged_around_32_64":
+        return [t for n in (31, 32, 33, 63, 64, 65)
+                for t in testdata.random_triples(1, n, seed=n)]
+    if case == "tot_0":
+        # acc 0, f 0 or 1, tot 0: coded as (0, 1, 1), between valid events
+        valid = testdata.random_triples(1, 40, seed=2)[0]
+        rows = [tuple(int(x[k]) for x in valid) for k in range(40)]
+        for k in (0, 7, 8, 39):
+            rows[k] = (0, k % 2, 0)
+        return [_tri(rows)]
+    # tot 65535: the range loses 16 bits, the most an event can take
+    k = 300
+    f = rng.integers(1, 4, k)
+    acc = rng.integers(0, 65535 - 3, k)
+    return [_tri(zip(acc, f, [65535] * k))]
+
+
+@pytest.mark.parametrize("case", ["long_deferred_run", "ragged_around_32_64",
+                                  "tot_0", "tot_65535"])
+def test_grid_inputs_equal_the_jax_coder(case):
+    tris = _grid_case(case)
+    acc, f, tot, cn = convert.triples_from_reference(tris, "cpu")
+    got = convert.payloads_to_reference(*port._rc_enc_plain(acc, f, tot, cn))
+    assert got == [_ref_rc(t) for t in tris]
+    if case == "long_deferred_run":
+        # the run of 0xFF bytes is longer than any ring the grid uses
+        assert b"\xff" * 4096 in got[0]
