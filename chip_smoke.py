@@ -22,10 +22,17 @@ What it does, in order (any failure exits non-zero):
    deferred-byte runs (one of 5000 bytes; 64 that end at every address
    modulo the small ring), totals of 0/1/2/65535 and frequencies of 0,
    B up to 193 and triples replayed from fqz jobs; rc_enc at its default
-   chunk and ring sizes and at (32, 64) and (8, 16), arith_dec at order
+   chunk and ring sizes and at (32, 64) and (8, 16), arith_enc at its
+   default launch, at 1 block per warp with 1 pool row, 1-symbol buffers
+   and a 16-byte ring, and at 32 blocks per warp with 16-symbol buffers,
+   arith_dec at order
    1 with its default pool and pools of 1 and 2 rows (the global-bank
-   route), and at M = 256 with every context in use; blocks holding
-   byte 255 (max-symbol byte 0) go through the arith batch entries;
+   route), and at M = 256 with every context in use; rans8_dec at 32,
+   64 and 128 threads per CTA and through the wide-table route, and on
+   4x8 alphabets of 128 to 256 symbols; blocks holding byte 255
+   (max-symbol byte 0) and blocks whose range-coder payload is 5 bytes
+   (they decode to zeros, as in the reference) go through the arith
+   batch entries;
 3. drives the main paths at full width through the entry points a user
    calls, the launch counts set to 0 just before each and read just
    after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
@@ -59,16 +66,20 @@ What it does, in order (any failure exits non-zero):
    length cut to 8192) and, for sf_fetch, ``torch.gather``; times the
    two 4x16 encode variants whole, tensor preparation included, then
    those two and the packed encode on the rans_pallas path's largest
-   shift group, the device table build, arith_dec at each arith
-   main-path shape (with its default pool and the blocks whose contexts
-   overflow it), and the arith kernels at 1 to 32 threads per CTA and
-   arith_dec's pool sizes; prints the compress wall of both table
-   routes, at B and at group sizes 4 to 1024 around
+   shift group (and both packed kernels on the second shift group),
+   the device table build, arith_dec at each arith main-path shape (with
+   its default pool and the blocks whose contexts overflow it),
+   arith_enc at 1 to 32 blocks per warp at each arith main-path shape,
+   arith_dec at 1 to 32 threads per CTA and its pool sizes, and
+   rans8_dec at 32 to 128 threads per CTA and through the wide-table
+   route at each 4x8 main-path shape; prints the compress wall of both
+   table routes, at B and at group sizes 4 to 1024 around
    ``TABLES_DEVICE_MIN``.
 
-``--ab DIR`` runs none of that: it times rc_enc and arith_dec of this
-checkout against those of the checkout at DIR (the parent commit,
-unpacked with ``git archive``), in turns, on the main paths' inputs.
+``--ab DIR`` runs none of that: it times arith_enc, arith_dec,
+rans8_dec and rc_enc of this checkout against those of the checkout at
+DIR (the parent commit, unpacked with ``git archive``), in turns, on
+the main paths' inputs, and fails if any output differs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -205,11 +216,17 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
             fail(f"rans16_dec did not return the input at {label}")
 
 
-def check_case8(blocks, order, label, garbage=False) -> None:
+# rans8_dec (threads, global_tables): the default, larger CTAs, and the
+# wide-table route (tables read from global memory) at the smallest CTA
+RANS8_SHAPES = ((0, False), (64, False), (128, False), (32, True))
+
+
+def check_case8(blocks, order, label, garbage=False, max_a=96) -> None:
     """The two rANS 4x8 kernels on one case; tables from the native
-    4x8 table build (rows of 4095 slots)."""
+    4x8 table build (rows of 4095 slots; alphabets up to ``max_a``);
+    rans8_dec at each of RANS8_SHAPES."""
     B, N = blocks.shape
-    alpha, packed = testdata.r8_tables(blocks, order)
+    alpha, packed = testdata.r8_tables(blocks, order, max_a)
     tables = convert.tables8_from_reference(alpha, packed, DEV)
     bt = torch.from_numpy(blocks).to(DEV)
     sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
@@ -227,12 +244,15 @@ def check_case8(blocks, order, label, garbage=False) -> None:
         variants += [(" truncated", st_k, cn_k // 2),
                      (" garbage", garbage_states(B, N), cn_k)]
     for tag, st, cn in variants:
-        out_k = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order)
         out_p = rans8_vmem._rans8_dec_plain(st, stream, cn, tables, N, order)
-        torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
-            fail(f"rans8_dec != plain at {label}{tag}")
-        if not tag and not torch.equal(out_k, bt):
+        for threads, glob in RANS8_SHAPES:
+            out_k = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order,
+                                         threads=threads, global_tables=glob)
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, out_p):
+                fail(f"rans8_dec != plain at {label}{tag} threads={threads} "
+                     f"global_tables={glob}")
+        if not tag and not torch.equal(out_p, bt):
             fail(f"rans8_dec did not return the input at {label}")
 
 
@@ -244,20 +264,28 @@ def same_bytes(got, want) -> bool:
 
 
 POOLS = (0, 1, 2)    # arith_dec's order-1 pool: the default, then 1 and 2 rows
+# arith_enc (per_warp, pool, chunk, ring): the defaults, the smallest
+# settings (symbols staged byte by byte), and 32 blocks per warp with
+# small buffers (symbols staged by cp.async)
+ENC_SHAPES = ((0, 0, 0, 0), (1, 1, 1, 16), (32, 2, 16, 32))
 
 
 def check_arith_case(blocks, lens, ms, order, label, garbage=False) -> None:
-    """arith_enc and arith_dec on one ragged batch; at order 1 the
-    decoder runs with its default pool and with pools of 1 and 2 rows,
-    so that contexts past the pool take the global bank."""
+    """arith_enc and arith_dec on one ragged batch; the encoder runs at
+    each of ENC_SHAPES; at order 1 the decoder runs with its default pool
+    and with pools of 1 and 2 rows, so that contexts past the pool take
+    the global bank (the encoder's pools of 1 and 2 do the same)."""
     B, N = blocks.shape
     M = int(ms.max())
     bt, lt, mt = (torch.from_numpy(x).to(DEV) for x in (blocks, lens, ms))
-    enc_k = arith_vmem.arith_enc(bt, lt, mt, M, order)
     enc_p = arith_vmem._arith_enc_plain(bt, lt, mt, M, order)
-    torch.cuda.synchronize()
-    if not same_bytes(enc_k, enc_p):
-        fail(f"arith_enc != plain at {label}")
+    for per_warp, pool, chunk, ring in ENC_SHAPES:
+        enc_k = arith_vmem.arith_enc(bt, lt, mt, M, order, per_warp=per_warp,
+                                     pool=min(pool, M), chunk=chunk, ring=ring)
+        torch.cuda.synchronize()
+        if not same_bytes(enc_k, enc_p):
+            fail(f"arith_enc != plain at {label} per_warp={per_warp} "
+                 f"pool={pool} chunk={chunk} ring={ring}")
     by_k, cn_k = enc_k
     stream = by_k[:, :max(int(cn_k.max()), 1)].contiguous()
     variants = [("", stream, cn_k)]
@@ -385,6 +413,20 @@ def phase_kernels_rc(quick: bool) -> int:
         if outs != [b.tobytes() for b in blocks]:
             fail(f"arith: byte-255 blocks did not round-trip (order {order})")
         n += 1
+    # a 5-byte range-coder payload decodes to zeros (a reference quirk
+    # that both packages keep): np.full(8, 3) gives one at both orders
+    for order in (0, 1):
+        blocks = [np.full(8, 3, np.uint8)] * 3
+        streams = batch.arith_compress_blocks(blocks, order=order,
+                                              engine="device")
+        if streams != [arith.compress(blocks[0], order)] * 3 \
+                or len(streams[0]) != 8:
+            fail(f"arith: the 5-byte payload stream changed (order {order})")
+        if batch.arith_uncompress_blocks(streams, engine="device") \
+                != [bytes(8)] * 3:
+            fail(f"arith: a 5-byte payload did not decode to zeros "
+                 f"(order {order})")
+        n += 1
     jobs = testdata.synth_fqz_jobs(5, 30, 50, seed=3)
     parts = [fqz._replay_job(j, 4) for j in jobs]
     if any(p is None for p in parts):
@@ -505,6 +547,15 @@ def phase_kernels(quick: bool) -> int:
                                 f"4x8 B={B} N={N} nsym={nsym} order={order}",
                                 garbage=(N == 514))
                     n += 1
+    # 4x8 alphabets past the batch layer's widest bucket, up to 256 (the
+    # order-1 tables then stay in global memory)
+    for B, nsym in ((5, 128), (130, 200), (5, 256)):
+        blocks = testdata.synth_wide(B, 4096, nsym, seed=B + nsym, lo=0)
+        for order in (0, 1):
+            check_case8(blocks, order,
+                        f"4x8 wide B={B} N=4096 nsym={nsym} order={order}",
+                        garbage=True, max_a=256)
+            n += 1
     return n
 
 
@@ -735,7 +786,8 @@ def run_pallas_path(blocks, order):
     (every block round-trips).  The launch counts are set to 0 just
     before each rans_pallas call and read just after: one launch of the
     packed kernel, none of any other.  Returns the launches summed over
-    the batch's calls and the largest shift group (indices, shift)."""
+    the batch's calls and the shift groups ((indices, shift), largest
+    first) with the device tables."""
     B, N = blocks.shape
     name = f"rans_pallas synth4 order {order}"
     torch.cuda.synchronize()
@@ -794,8 +846,8 @@ def run_pallas_path(blocks, order):
         f"{t_enc:.3f} s, decode {t_dec:.3f} s (host wall, transfers "
         f"included); every block's encode equals rans_v2's and every "
         f"block round-trips; launches {total}")
-    _n, sv, sel = max(groups, key=lambda g: g[0])
-    return total, (sel, sv, alpha_d, packed_d)
+    groups.sort(key=lambda g: -g[0])
+    return total, ([(sel, sv) for _n, sv, sel in groups], alpha_d, packed_d)
 
 
 def profile_call(label, fn, *args):
@@ -974,14 +1026,8 @@ def kernel_times(blocks, order, launches):
 def kernel_times8(blocks, order, launches):
     """The same for the two rANS 4x8 kernels."""
     B, N = blocks.shape
-    res = batch._pmap(lambda b: native.r8_build_tables_dense(b, order),
-                      list(blocks))
-    if order:
-        alpha, packed, A = rans_v2.densify_builds((r[1], r[2]) for r in res)
-    else:
-        alpha, packed = batch._r8_dense_o0(res)
-        A = alpha.shape[1]
-    tables = convert.tables8_from_reference(alpha, packed, DEV)
+    tables = rans8_tables(blocks, order)
+    A = tables.alpha.shape[1]
     bt = torch.from_numpy(blocks).to(DEV)
     shape = f"B={B} N={N} A={A} order={order}"
     plain = {}
@@ -1028,15 +1074,40 @@ def kernel_times8(blocks, order, launches):
     ]
 
 
-def kernel_times_packed(blocks, group, launches):
+def packed_second_launch(blocks, group, alpha_d, packed_d):
+    """Both packed-row kernels on another shift group of the order-1
+    rans_pallas path (the second launch of each per batch): the shape and
+    the ms of each, each output checked."""
+    sel, sv = group
+    selt = torch.from_numpy(sel).to(DEV)
+    bt = torch.from_numpy(blocks[sel]).to(DEV)
+    al = alpha_d[selt].contiguous()
+    B, N = bt.shape
+    A = al.shape[1]
+    pk = packed_d[selt].contiguous().view(B, A * A)
+    st, wd, cn = rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)
+    ms_enc = cuda_ms(lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1))
+    words = wd[:, :max(int(cn.max()), 1)].contiguous()
+    if not torch.equal(rans_pallas.rans16_dec_packed(st, words, pk, al, sv,
+                                                     N, 1), bt):
+        fail(f"rans16_dec_packed did not return the shift-{sv} group")
+    ms_dec = cuda_ms(lambda: rans_pallas.rans16_dec_packed(
+        st, words, pk, al, sv, N, 1))
+    shape = f"B={B} N={N} A={A} order=1 shift={sv}"
+    return shape, {"rans16_enc_packed": ms_enc, "rans16_dec_packed": ms_dec}
+
+
+def kernel_times_packed(blocks, groups, launches):
     """The two packed-row kernels at the shape the rans_pallas path gave
     them (its largest order-1 shift group, tables from the device
     build): each held against its plain version once more and timed,
     and the three 4x16 encodes timed whole on the same blocks and
     tables in turns (pfv, vmem, packed, packed, vmem, pfv; raw bytes
-    in, streams out).  Returns the ``kernels`` entries and the whole-
-    encode times."""
-    sel, sv, alpha_d, packed_d = group
+    in, streams out); then both on the second shift group, the batch's
+    other launch.  Returns the ``kernels`` entries and the whole-encode
+    times."""
+    shifts, alpha_d, packed_d = groups
+    sel, sv = shifts[0]
     selt = torch.from_numpy(sel).to(DEV)
     bt = torch.from_numpy(blocks[sel]).to(DEV)
     al = alpha_d[selt].contiguous()
@@ -1087,14 +1158,21 @@ def kernel_times_packed(blocks, group, launches):
     enc_bytes = B * N + tab + 2 * nwords + B * (16 + 4)
     dec_bytes = 2 * nwords + tab + B * 16 + B * N
     ref = "htscodecs_tpu/ops/rans_pallas.py"
-    return [
+    entries = [
         entry("rans16_dec_packed", "rans16_dec_packed.cu", f"{ref}:265",
               shape, launches, ms_dec, pl_dec, err_dec, dec_bytes,
               (12 + 3 * math.ceil(math.log2(A + 1))) * nq, None),
         entry("rans16_enc_packed", "rans16_enc_packed.cu", f"{ref}:485",
               shape, launches, ms_enc, pl_enc, err_enc, enc_bytes,
               38 * nq + 2 * 256 * A * B, None),
-    ], whole
+    ]
+    del words, st, out
+    for group in shifts[1:2]:
+        shape2, ms2 = packed_second_launch(blocks, group, alpha_d, packed_d)
+        for e in entries:
+            e["second_shape"] = shape2
+            e["second_ms"] = ms2[e["name"]]
+    return entries, whole
 
 
 PLAIN_CUT = 8192     # byte (event) indices the range-coder plain versions run
@@ -1152,7 +1230,7 @@ def kernel_times_arith(blocks, order, launches):
                   max_abs_diff(out_c, bc))
 
     # bytes: the blocks, lengths and max-symbol counts in, the emitted
-    # bytes and the counts out (decode: the reverse); the model bank is
+    # bytes and the counts out (decode: the reverse); the models are
     # scratch.  Integer operations per byte: a 32-bit divide (~20, as in
     # the rANS encoders' count), the multiply-add and carry test (4), the
     # first model entry (6), two shift tests and a byte store (8), the
@@ -1169,17 +1247,16 @@ def kernel_times_arith(blocks, order, launches):
     return entries
 
 
-def arith_inputs(blocks, order, pkg=None):
+def arith_inputs(blocks, order):
     """The arith_dec inputs of a main-path batch: (stream, counts,
     lens, max_syms, M), the stream from arith_enc."""
-    pkg = pkg or arith_vmem
     B, N = blocks.shape
     ms_np = blocks.max(axis=1).astype(np.int32) + 1
     M = int(ms_np.max())
     bt = torch.from_numpy(blocks).to(DEV)
     mt = torch.from_numpy(ms_np).to(DEV)
     lt = torch.full((B,), N, dtype=torch.int32, device=DEV)
-    by, cn = pkg.arith_enc(bt, lt, mt, M, order)
+    by, cn = arith_vmem.arith_enc(bt, lt, mt, M, order)
     return by[:, :max(int(cn.max()), 1)].contiguous(), cn, lt, mt, M
 
 
@@ -1215,33 +1292,84 @@ def arith_dec_report(batches):
     return rep
 
 
-def arith_thread_sweep(blocks):
-    """arith_enc / arith_dec ms at both orders by threads per CTA (one
-    block per thread either way): what ``arith_vmem.threads_per_cta``
-    chooses from for both; at order 1 arith_dec also by
-    pool size (the default, 5 rows: just synth4's contexts, and M: the
-    whole bank in shared memory, fewer blocks per SM), where a CTA's
-    shared memory allows it."""
-    B, N = blocks.shape
+def arith_launch_sweep(batches):
+    """The launch shapes of the arith kernels at the main paths' shapes:
+    arith_enc by blocks per warp (what ``arith_vmem.blocks_per_warp``
+    chooses from); on the synth4 batches, arith_dec by threads per CTA (one block per thread: what
+    ``arith_vmem.threads_per_cta`` chooses from) and, at order 1, by pool
+    size (the default, 5 rows: just synth4's contexts, and M: the whole
+    bank in shared memory, fewer blocks per SM), where a CTA's shared
+    memory allows it."""
     props = torch.cuda.get_device_properties(DEV)
     limit = props.shared_memory_per_multiprocessor - 1024
-    sweep = {"chosen": arith_vmem.threads_per_cta(B, DEV)}
-    for order in (0, 1):
+    sweep = {}
+    for name, blocks, order in batches:
+        B, N = blocks.shape
         stream, cn, lt, mt, M = arith_inputs(blocks, order)
         bt = torch.from_numpy(blocks).to(DEV)
-        for tpb in (1, 2, 4, 8, 16, 32):
-            sweep[f"order{order} threads{tpb} enc"] = cuda_ms(
+        sweep[f"{name} enc chosen per_warp"] = arith_vmem.blocks_per_warp(
+            B, props.multi_processor_count)
+        for g in (1, 2, 4, 8, 16, 32):
+            sweep[f"{name} enc per_warp{g}"] = cuda_ms(
                 lambda: arith_vmem.arith_enc(bt, lt, mt, M, order,
-                                             threads=tpb), reps=3)
+                                             per_warp=g), reps=3)
+        if not name.startswith("synth4"):
+            continue
+        sweep[f"{name} dec chosen threads"] = arith_vmem.threads_per_cta(
+            B, DEV)
+        for tpb in (1, 2, 4, 8, 16, 32):
             pools = {"default": arith_vmem.default_pool(M, B, tpb, DEV),
                      "5": 5, "M": M} if order else {"-": 0}
             for pname, pool in pools.items():
-                if tpb * arith_vmem._dec_words(M, order, pool) * 4 > limit:
+                if tpb * arith_vmem._model_words(M, order, pool) * 4 > limit:
                     continue
-                sweep[f"order{order} threads{tpb} dec pool{pname}"] = [
+                sweep[f"{name} dec threads{tpb} pool{pname}"] = [
                     pool, cuda_ms(lambda: arith_vmem.arith_dec(
                         stream, cn, lt, mt, M, N, order, threads=tpb,
                         pool=pool), reps=3)]
+    return sweep
+
+
+def rans8_tables(blocks, order):
+    """The 4x8 tables that the batch layer builds for a main-path batch."""
+    res = batch._pmap(lambda b: native.r8_build_tables_dense(b, order),
+                      list(blocks))
+    if order:
+        alpha, packed, _A = rans_v2.densify_builds((r[1], r[2]) for r in res)
+    else:
+        alpha, packed = batch._r8_dense_o0(res)
+    return convert.tables8_from_reference(alpha, packed, DEV)
+
+
+def rans8_inputs(blocks, order):
+    """The rans8_dec inputs of a main-path batch: (states, stream,
+    counts, tables), the stream from rans8_enc."""
+    tables = rans8_tables(blocks, order)
+    bt = torch.from_numpy(blocks).to(DEV)
+    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
+    st, by, cn = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
+    return st, by[:, :max(int(cn.max()), 1)].contiguous(), cn, tables
+
+
+def rans8_dec_sweep(batches):
+    """rans8_dec ms at the main paths' shapes by threads per CTA (32, 64,
+    128: what ``rans8_vmem.DEC_THREADS`` is chosen from) and, at the
+    default CTA, through the wide-table route (tables read from global
+    memory)."""
+    sweep = {"chosen threads": rans8_vmem.DEC_THREADS}
+    for name, blocks, order in batches:
+        N = blocks.shape[1]
+        st, stream, cn, tables = rans8_inputs(blocks, order)
+        A = tables.alpha.shape[1]
+        for t in (32, 64, 128):
+            sweep[f"{name} A={A} threads{t}"] = [
+                rans8_vmem.tables_in_smem(t, A, order),
+                cuda_ms(lambda: rans8_vmem.rans8_dec(
+                    st, stream, cn, tables, N, order, threads=t), reps=3)]
+        sweep[f"{name} A={A} global tables"] = cuda_ms(
+            lambda: rans8_vmem.rans8_dec(st, stream, cn, tables, N, order,
+                                         global_tables=True), reps=3)
+        del st, stream, cn, tables
     return sweep
 
 
@@ -1283,7 +1411,7 @@ def kernel_times_rc(jobs, launches):
 def load_parent(path):
     """The port's package of another checkout (the parent commit's,
     unpacked with ``git archive``), imported as ``parent_port`` with its
-    own kernel library: (its arith_vmem, its rc_vmem)."""
+    own kernel library: (its arith_vmem, its rc_vmem, its rans8_vmem)."""
     import importlib
     import importlib.util
     root = Path(path).resolve() / "htscodecs_tpu_torch"
@@ -1296,7 +1424,8 @@ def load_parent(path):
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
     return (importlib.import_module("parent_port.ops.arith_vmem"),
-            importlib.import_module("parent_port.ops.rc_vmem"))
+            importlib.import_module("parent_port.ops.rc_vmem"),
+            importlib.import_module("parent_port.ops.rans8_vmem"))
 
 
 def in_turns(runs, reps=5):
@@ -1309,10 +1438,10 @@ def in_turns(runs, reps=5):
 
 
 def ab_run(parent: str, B: int) -> None:
-    """rc_enc and arith_dec of this checkout against those of the
-    checkout at ``parent``, on the main paths' inputs, in one process on
-    one card: outputs must be equal, times in turns."""
-    par_arith, par_rc = load_parent(parent)
+    """arith_enc, arith_dec, rans8_dec and rc_enc of this checkout against
+    those of the checkout at ``parent``, on the main paths' inputs, in
+    one process on one card: outputs must be equal, times in turns."""
+    par_arith, par_rc, par_r8 = load_parent(parent)
     N = 65536
     q4 = testdata.synth_quality(B, N, seed=42)
     wide = testdata.synth_wide(max(B // 4, 1), N, 40, seed=9)
@@ -1320,24 +1449,43 @@ def ab_run(parent: str, B: int) -> None:
     for name, blocks, order in (("synth4 order 1", q4, 1),
                                 ("synth4 order 0", q4, 0),
                                 ("wide41 order 1", wide, 1)):
+        Bb = blocks.shape[0]
+        want = torch.from_numpy(blocks).to(DEV)
+        ms_np = blocks.max(axis=1).astype(np.int32) + 1
+        M = int(ms_np.max())
+        mt = torch.from_numpy(ms_np).to(DEV)
+        lt = torch.full((Bb,), N, dtype=torch.int32, device=DEV)
+        runs = {"parent": lambda: par_arith.arith_enc(want, lt, mt, M, order),
+                "change": lambda: arith_vmem.arith_enc(want, lt, mt, M, order)}
+        if not same_bytes(runs["parent"](), runs["change"]()):
+            fail(f"--ab: arith_enc of the parent and of the change differ "
+                 f"on {name}")
+        res[f"arith_enc {name}"] = in_turns(runs)
+
         stream, cn, lt, mt, M = arith_inputs(blocks, order)
         runs = {"parent": lambda: par_arith.arith_dec(stream, cn, lt, mt, M,
                                                       N, order),
                 "change": lambda: arith_vmem.arith_dec(stream, cn, lt, mt, M,
                                                        N, order)}
-        want = torch.from_numpy(blocks).to(DEV)
         for k, fn in runs.items():
             if not torch.equal(fn(), want):
                 fail(f"--ab: arith_dec of the {k} did not decode {name}")
         res[f"arith_dec {name}"] = in_turns(runs)
-        # this checkout's kernel by threads per CTA (default pool)
-        res[f"arith_dec {name} by threads"] = {
-            tpb: cuda_ms(lambda: arith_vmem.arith_dec(
-                stream, cn, lt, mt, M, N, order, threads=tpb), reps=3)
-            for tpb in (1, 2, 4, 8, 16)}
-        log(f"A/B arith_dec {name} B={blocks.shape[0]} M={M}: "
-            f"{res[f'arith_dec {name}']}; by threads per CTA "
-            f"{res[f'arith_dec {name} by threads']}")
+        del stream
+
+        st, s8, cn8, tables = rans8_inputs(blocks, order)
+        runs = {"parent": lambda: par_r8.rans8_dec(st, s8, cn8, tables, N,
+                                                   order),
+                "change": lambda: rans8_vmem.rans8_dec(st, s8, cn8, tables, N,
+                                                       order)}
+        for k, fn in runs.items():
+            if not torch.equal(fn(), want):
+                fail(f"--ab: rans8_dec of the {k} did not decode {name}")
+        res[f"rans8_dec {name}"] = in_turns(runs)
+        del st, s8, cn8, tables, want
+        log(f"A/B {name} B={Bb}: " + "; ".join(
+            f"{k} {res[f'{k} {name}']}"
+            for k in ("arith_enc", "arith_dec", "rans8_dec")))
     del q4, wide
     jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
     parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
@@ -1361,9 +1509,10 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="a thin slice of the kernel comparison grid")
     ap.add_argument("--ab", metavar="DIR",
-                    help="only time rc_enc and arith_dec against those of "
-                         "the checkout at DIR (e.g. the parent commit "
-                         "unpacked with git archive), in turns")
+                    help="only time arith_enc, arith_dec, rans8_dec and "
+                         "rc_enc against those of the checkout at DIR (e.g. "
+                         "the parent commit unpacked with git archive), in "
+                         "turns")
     args = ap.parse_args()
 
     kind = torch.cuda.get_device_name(0)
@@ -1434,7 +1583,7 @@ def main() -> None:
     route_sweep = table_route_sweep(q4)
 
     # the first-generation engine on device-built tables
-    launches["packed"], group = run_pallas_path(q4, 1)
+    launches["packed"], groups = run_pallas_path(q4, 1)
     run_pallas_path(q4, 0)
 
     # rANS 4x8: its host coder is pure Python, so the sample is 16
@@ -1474,17 +1623,17 @@ def main() -> None:
     profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
                  "device")
     entries, variants = kernel_times(q4, 1, launches)
-    packed_entries, whole = kernel_times_packed(q4, group, launches["packed"])
-    del group
+    packed_entries, whole = kernel_times_packed(q4, groups, launches["packed"])
+    del groups
     build_ms = table_build_ms(q4)
     entries += kernel_times8(q4, 1, launches)
     entries += kernel_times_arith(q4, 1, launches["arith"])
-    dec_rep = arith_dec_report([("synth4 order 1", q4, 1),
-                                ("synth4 order 0", q4, 0),
-                                ("wide41 order 1", wide, 1)])
-    del wide
-    sweep = arith_thread_sweep(q4)
-    del q4
+    shapes = [("synth4 order 1", q4, 1), ("synth4 order 0", q4, 0),
+              ("wide41 order 1", wide, 1)]
+    dec_rep = arith_dec_report(shapes)
+    sweep = arith_launch_sweep(shapes)
+    sweep8 = rans8_dec_sweep(shapes)
+    del wide, q4, shapes
     entries += kernel_times_rc(jobs, launches["fqz"])
     del jobs
     entries += packed_entries
@@ -1492,7 +1641,9 @@ def main() -> None:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
             f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms"
-            f"{' at ' + e['plain_shape'] if 'plain_shape' in e else ''})")
+            f"{' at ' + e['plain_shape'] if 'plain_shape' in e else ''})"
+            + (f"; second launch {e['second_ms']:.3f} ms at "
+               f"{e['second_shape']}" if "second_ms" in e else ""))
     log(f"4x16 encode whole (densify + inputs + kernels), ms: {variants}")
     print(json.dumps({"enc_variant_ms": variants}), flush=True)
     log(f"4x16 encode whole on the rans_pallas group, in turns, ms: {whole}")
@@ -1505,9 +1656,12 @@ def main() -> None:
     log(f"device table build, ms: {build_ms}")
     print(json.dumps({"table_build_ms": build_ms}), flush=True)
     print(json.dumps({"arith_dec_main_paths": dec_rep}), flush=True)
-    log(f"arith enc ms, dec [pool, ms] by order, threads per CTA and pool: "
-        f"{sweep}")
-    print(json.dumps({"arith_threads_per_cta_ms": sweep}), flush=True)
+    log(f"arith enc ms by blocks per warp, dec [pool, ms] by threads per "
+        f"CTA and pool: {sweep}")
+    print(json.dumps({"arith_launch_sweep_ms": sweep}), flush=True)
+    log(f"rans8_dec [tables in shared memory, ms] by threads per CTA: "
+        f"{sweep8}")
+    print(json.dumps({"rans8_dec_sweep_ms": sweep8}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

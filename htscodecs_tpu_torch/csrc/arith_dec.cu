@@ -51,9 +51,6 @@
 
 #include "rc_core.cuh"
 
-// The kernel's shared memory: `words` words of models per thread.
-extern __shared__ __align__(16) uint32_t dsmem[];
-
 namespace {
 
 struct Dec {
@@ -66,71 +63,6 @@ __device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ by,
 {
     return pos < nb ? (uint32_t)__ldg(by + pos) : 0u;
 }
-
-// A model row in shared memory, by word index into dsmem, and one in
-// the global bank, by pointer.
-struct SRow {
-    int at;
-    __device__ __forceinline__ uint32_t& operator[](int j) const { return dsmem[at + j]; }
-    __device__ __forceinline__ uint4 head(int M) const
-    {
-        return *reinterpret_cast<const uint4*>(&dsmem[at + M]);
-    }
-};
-
-struct GRow {
-    uint32_t* at;
-    __device__ __forceinline__ uint32_t& operator[](int j) const { return at[j]; }
-    __device__ __forceinline__ uint4 head(int M) const
-    {
-        return *reinterpret_cast<const uint4*>(at + M);
-    }
-};
-
-// A row of a decoder's model: the SIMPLE_MODEL row (M + 1 words), then
-// the reciprocals (rc_udiv_recip) of max(total, 1) at M + 1 and of
-// max(total + 16, 1) at M + 2.  Rows are row_stride(M) words apart and
-// start row_pad(M) words past a 16-byte boundary, so that row + M is
-// 16-byte aligned (word M + 3 is in the row: the 16-byte load reads it).
-__host__ __device__ __forceinline__ int row_stride(int M)
-{
-    return (M + 4 + 3) & ~3;
-}
-
-__host__ __device__ __forceinline__ int row_pad(int M)
-{
-    return (4 - (M & 3)) & 3;
-}
-
-template <class Row>
-__device__ __forceinline__ void dec_row_init(Row row, int M, int max_syms)
-{
-    model_init(row, M, max_syms);
-    row[M + 1] = rc_udiv_recip(max((uint32_t)max_syms, 1u));
-    row[M + 2] = rc_udiv_recip(max((uint32_t)max_syms + MODEL_STEP, 1u));
-}
-
-// A reciprocal on its way from `rtab` to a row: stored one symbol after
-// its load was issued, so that the load's latency is off the chain.  A
-// row in shared memory is `sat` (a word index), one in the global bank
-// `gat` (null otherwise).
-struct Pending {
-    int sat;
-    uint32_t* gat;
-    uint32_t val;
-
-    __device__ __forceinline__ void store() const
-    {
-        if (gat) *gat = val;
-        else dsmem[sat] = val;
-    }
-    __device__ __forceinline__ void target(SRow r, int M)
-    {
-        sat = r.at + M + 2;
-        gat = nullptr;
-    }
-    __device__ __forceinline__ void target(GRow r, int M) { gat = r.at + M + 2; }
-};
 
 // One symbol from the model row `row`; the row is updated.  At order 1
 // the map entry of the decoded symbol, the next context, is loaded
@@ -160,8 +92,7 @@ __device__ __forceinline__ uint32_t dec_symbol(Row row, int M, Dec& d,
     const uint4 h = row.head(M);
     uint32_t e = row[0];
     const uint32_t tot = h.x;
-    pend.target(row, M);
-    pend.val = __ldg(rtab + min(tot + 2u * MODEL_STEP, 0xFFFFu));
+    pend.begin(row, M, tot, rtab);
     const uint32_t total = max(tot, 1u);
     int p = 0;
     uint32_t acc = 0u, prev = 0u, r;
@@ -200,13 +131,7 @@ __device__ __forceinline__ uint32_t dec_symbol(Row row, int M, Dec& d,
         }
         d.b1 = byte_at(by, d.pos + 1, nb);
     }
-    const uint32_t nt = model_update(row, M, p, e, prev, tot);
-    if (nt == tot + MODEL_STEP) {
-        row[M + 1] = h.z;
-    } else {
-        row[M + 1] = rc_udiv_recip(max(nt, 1u));
-        pend.val = rc_udiv_recip(max(nt + MODEL_STEP, 1u));
-    }
+    pend.end(row, M, h, tot, model_update(row, M, p, e, prev, tot));
     return sym;
 }
 
@@ -228,18 +153,13 @@ __global__ void arith_dec_kernel(const uint8_t* __restrict__ stream,
     const uint8_t* by = stream + (size_t)b * W;
     const int nb = min(max(counts[b], 0), W);
     const int ms = msyms[b];
-    const int S = row_stride(M);
-    uint8_t* const sbytes = reinterpret_cast<uint8_t*>(dsmem);
     const int mine = threadIdx.x * words;                   // word index
-    const int map = 4 * mine;                           // byte index, order 1
-    const int rows = mine + (ORDER ? 64 : 0) + row_pad(M);
-    uint32_t* grows = ORDER ? gbank + (size_t)b * (M - pool) * S + row_pad(M)
-                            : nullptr;
-    if (ORDER)
-        for (int j = 0; j < 64; ++j) dsmem[mine + j] = 0u;
-    dec_row_init(SRow{rows}, M, ms);
-    int nused = 1;
-    Pending pend{rows + M + 2, nullptr, dsmem[rows + M + 2]};
+    Models md{4 * mine, mine + (ORDER ? 64 : 0) + row_pad(M),
+              ORDER ? gbank + (size_t)b * (M - pool) * row_stride(M) + row_pad(M)
+                    : nullptr,
+              pool, row_stride(M), M, ms, 1};
+    md.init(ORDER);
+    Pending pend{md.rows + M + 2, nullptr, dsmem[md.rows + M + 2]};
 
     // RC_StartDecode: five bytes prime the code; a stream too short to
     // hold them and one more decodes nothing
@@ -257,38 +177,20 @@ __global__ void arith_dec_kernel(const uint8_t* __restrict__ stream,
     int slot = 0, ctx = 0;
     for (int i = 0; i < n; ++i) {
         int next = 0;
-        if (ORDER && slot == 0 && ctx != 0) {
-            slot = nused++;
-            sbytes[map + ctx] = (uint8_t)slot;
-            if (slot < pool) dec_row_init(SRow{rows + slot * S}, M, ms);
-            else dec_row_init(GRow{grows + (slot - pool) * S}, M, ms);
-        }
+        if (ORDER) slot = md.claim(slot, ctx);
         pend.store();
         uint32_t sym;
         if (!ORDER || slot < pool)
-            sym = dec_symbol<ORDER>(SRow{rows + slot * S}, M, d, by, nb, map,
-                                    next, pend, rtab);
+            sym = dec_symbol<ORDER>(md.srow(slot), M, d, by, nb, md.map, next,
+                                    pend, rtab);
         else
-            sym = dec_symbol<ORDER>(GRow{grows + (slot - pool) * S}, M, d, by,
-                                    nb, map, next, pend, rtab);
+            sym = dec_symbol<ORDER>(md.grow(slot), M, d, by, nb, md.map, next,
+                                    pend, rtab);
         o[i] = (uint8_t)sym;
         slot = next;
         ctx = (int)sym;
     }
     for (int i = n; i < K; ++i) o[i] = 0;
-}
-
-// Shared-memory words of one block's models: order 1 the 256-byte map
-// and `pool` rows, order 0 one row, with the row padding; a multiple of
-// 4 (16-byte loads) and an odd one of 4, so that the 16-byte loads of 8
-// threads fall in different banks.  ops/arith_vmem.py (_dec_words)
-// holds the same rule.
-static int arith_dec_words(int M, int order, int pool)
-{
-    const int w = (order ? 64 + pool * row_stride(M) : row_stride(M))
-                  + row_pad(M);
-    const int w4 = (w + 3) / 4;
-    return 4 * (w4 | 1);
 }
 
 // stream (B,W) u8, counts (B,) i32 bytes that belong to each block,
@@ -316,7 +218,7 @@ extern "C" int arith_dec_launch(const void* stream, const void* counts,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                            dev);
-    const int words = arith_dec_words(M, order, pool);
+    const int words = model_words(M, order, pool);
     const size_t smem = (size_t)tpb * words * 4;
     if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)cuda_stream;

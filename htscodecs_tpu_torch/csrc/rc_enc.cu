@@ -97,16 +97,6 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
                     "r"(smem_addr(bar)) : "memory");
 }
 
-__device__ __forceinline__ void named_sync(int id)
-{
-    asm volatile("bar.sync %0, 64;" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id)
-{
-    asm volatile("bar.arrive %0, 64;" :: "r"(id) : "memory");
-}
-
 // One chunk of one plane: `len` events from p, at global addresses
 // a0 .. a0 + 2 len.  Event k sits at slot skew + k of the staging
 // buffer, skew = (a0 & 15) / 2; the body [lo, hi) is the 16-byte-aligned
@@ -127,46 +117,6 @@ struct Span {
     }
 };
 
-// stream bytes [j, n) of a row from the ring: the unaligned head and
-// tail byte by byte, the rest in 16-byte stores (out of line: it runs
-// once per `ring` bytes)
-__device__ __noinline__ void ring_flush(const uint8_t* ring, uint8_t* row,
-                                        uint32_t mask, uint32_t phase, int j,
-                                        int n)
-{
-    for (; j < n && ((phase + j) & 15u); ++j)
-        row[j] = ring[(phase + j) & mask];
-    for (; j + 16 <= n; j += 16)
-        *reinterpret_cast<uint4*>(row + j) =
-            *reinterpret_cast<const uint4*>(ring + ((phase + j) & mask));
-    for (; j < n; ++j) row[j] = ring[(phase + j) & mask];
-}
-
-// The ring: stream byte j of the row goes to ring[(phase + j) & mask],
-// phase = the row's address & mask, so 16 ring bytes that start at a
-// multiple of 16 are 16 output bytes at an aligned address.  When the
-// ring's window ends, the bytes since the last flush go out.
-struct Ring {
-    uint8_t* ring;
-    uint8_t* row;
-    uint32_t mask, phase;
-    int n, flushed;
-
-    __device__ __forceinline__ void flush()
-    {
-        ring_flush(ring, row, mask, phase, flushed, n);
-        flushed = n;
-    }
-
-    __device__ __forceinline__ void put(uint32_t byte)
-    {
-        const uint32_t t = phase + (uint32_t)n;
-        ring[t & mask] = (uint8_t)byte;
-        ++n;
-        if (((t + 1u) & mask) == 0u) flush();
-    }
-};
-
 }  // namespace
 
 __global__ void __launch_bounds__(kThreads)
@@ -178,7 +128,7 @@ rc_enc_kernel(const uint16_t* __restrict__ acc,
               int32_t* __restrict__ counts,
               int Kp, int cap, int chunk, int ring)
 {
-    extern __shared__ __align__(16) uint8_t smem[];
+    uint8_t* const smem = reinterpret_cast<uint8_t*>(dsmem);
     const int b = blockIdx.x;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -274,11 +224,8 @@ rc_enc_kernel(const uint16_t* __restrict__ acc,
 #pragma unroll 4
                 for (int k = 0; k < len; ++k) {
                     const uint4 e1 = R[k + 1];
-                    const uint32_t r = rc_udiv64(range, e.x, e.y, e.w);
-                    const uint32_t rg = r * (e.z >> 16);
-                    const uint32_t ns = (rg < RC_TOP) + (rg < (1u << 16));
-                    range = rg << (8u * ns);
-                    Q[k] = make_uint2((e.z & 0xFFFFu) * r, ns);
+                    Q[k] = rc_range_step(range, rc_udiv64(range, e.x, e.y, e.w),
+                                         e.z & 0xFFFFu, e.z >> 16);
                     e = e1;
                 }
             }
@@ -293,8 +240,7 @@ rc_enc_kernel(const uint16_t* __restrict__ acc,
     RcEnc rc;
     rc_enc_init(rc);
     uint8_t* row = out + (size_t)b * cap;
-    Ring o{rbuf, row, (uint32_t)ring - 1u,
-           (uint32_t)((uintptr_t)row & (uintptr_t)(ring - 1)), 0, 0};
+    Ring o(rbuf, row, ring);
     for (int c = 0; c < nch; ++c) {
         const int s = c & 1, len = min(chunk, n - c * chunk);
         named_sync(kQFull + s);
@@ -304,10 +250,7 @@ rc_enc_kernel(const uint16_t* __restrict__ acc,
 #pragma unroll 2
             for (int k = 0; k < len; ++k) {
                 const uint2 e1 = Q[k + 1];
-                const uint32_t low = rc.low + e.x;
-                rc.carry += low < rc.low;
-                rc.low = low;
-                for (uint32_t j = 0; j < e.y; ++j) rc_shift_low(rc, o);
+                rc_low_step(rc, o, e);
                 e = e1;
             }
         }

@@ -106,9 +106,9 @@ def _declare(lib) -> None:
     lib.rans8_enc_launch.restype = _int
     lib.rans8_enc_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
     lib.rans8_dec_launch.restype = _int
-    lib.rans8_dec_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
+    lib.rans8_dec_launch.argtypes = [_vp] * 6 + [_int] * 7 + [_vp]
     lib.arith_enc_launch.restype = _int
-    lib.arith_enc_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
+    lib.arith_enc_launch.argtypes = [_vp] * 6 + [_int] * 9 + [_vp]
     lib.arith_dec_launch.restype = _int
     lib.arith_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
     lib.rc_enc_launch.restype = _int

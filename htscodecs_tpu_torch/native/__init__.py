@@ -193,8 +193,10 @@ def _dense_bufs(max_a: int):
     b = getattr(_TLBUF, "bufs", None)
     if b is None or b[3] < max_a:
         # worst-case header: alphabet + per-row freq deltas; the C side
-        # compresses anything over 1000 B, but budget the raw size
-        hdr = np.empty(257 * 257 * 3 + 64, dtype=np.uint8)
+        # compresses anything over 1000 B, but budget the raw size (the
+        # 4x8 order-1 build asks for max_a + 2 rows of 1028 bytes)
+        hdr = np.empty(max(257 * 257 * 3, (max_a + 2) * 1028) + 64,
+                       dtype=np.uint8)
         alpha = np.empty(max_a, dtype=np.uint8)
         packed = np.empty(max_a * max_a, dtype=np.int32)
         b = (hdr, alpha, packed, max_a)

@@ -11,9 +11,17 @@ alphabet, its stream length or its carry pattern.
 
 ``arith_enc``  csrc/arith_enc.cu
     replaces ``_build_enc_kernel`` / ``_enc_vmem`` and ``_enc_scan``.
-    One thread per block: model search, RC_Encode, up to two
-    RC_ShiftLow per byte, model update.  Writes stream bytes and the
-    five finishing shifts directly: no events, no stitch sort, no
+    The model walk and update depend only on the symbols, so the chain
+    runs in three stages, one warp each, with ``per_warp`` blocks in the
+    lanes of every warp: the models (in shared memory, initialised by
+    the kernel, as ``arith_dec`` keeps them; no bank is built; the
+    symbols staged through shared memory) hand (acc, f, total) records
+    to the range chain, which takes the totals' reciprocals in parallel
+    and divides through them (``rc_udiv``), then queues (acc * r,
+    shifts) for low, the carry and the bytes (``rc_enc``'s two stages,
+    the same code), whose bytes go out from a shared-memory ring in
+    16-byte stores.  Records and queue entries pass in two buffers of
+    ``chunk`` symbols per block.  No events, no stitch sort, no
     expansion on the host, no saturation fallback.
 ``arith_dec``  csrc/arith_dec.cu
     replaces ``_build_dec_kernel`` / ``_dec_vmem`` and ``_dec_scan``.
@@ -29,20 +37,27 @@ alphabet, its stream length or its carry pattern.
     (``_recip_table`` holds every total's, read a symbol ahead), code /
     range not at all (the walk compares products).
 
-Both are bound by memory traffic on paper and by the latency of one
-serial chain per thread in fact (see the source notes).  The coder core
-(``csrc/rc_core.cuh``) is shared with ``ops/rc_vmem.py``.
+Both are bound by memory traffic on paper and by the latency of serial
+chains in fact (see the source notes).  The coder core
+(``csrc/rc_core.cuh``: the model rows, the range and low stages) is
+shared with ``ops/rc_vmem.py``.
 
-The order-1 pool (``pool_rows``): the launch aims to hold all B blocks
-on the card at once.  With ``tpb`` blocks per CTA, ceil(B / tpb) CTAs
+The order-1 pool (``pool_rows`` for ``arith_dec``, ``enc_pool_rows``
+for ``arith_enc``): the launch aims to hold all B blocks on the card at
+once.  With ``G`` blocks per CTA (``tpb`` threads of one block each for
+``arith_dec``, ``per_warp`` blocks for ``arith_enc``), ceil(B / G) CTAs
 spread over the SMs, ceil(CTAs / SMs) per SM; each CTA gets an even
 share of the SM's shared memory less the 1 KB the runtime keeps per
-CTA (at most the 227 KB one CTA may hold), each block a ``tpb``-th of
-that less its 256-byte map and 44 bytes of padding, in rows of M + 3
-words (the model and the reciprocals of its total and of the total +
-16) rounded up to 16 bytes: at least 1 row and at most M.  On an H100
-(228 KB per SM, 132 SMs) B = 4096 blocks at 4 per CTA get 22 rows of
-width 71, where synth4's blocks use 5 contexts.
+CTA (at most the 227 KB one CTA may hold).  ``arith_enc`` first takes
+its stage buffers from that share: per block two buffers of ``chunk``
+8-byte records, 4-byte reciprocals, 8-byte queue entries and symbols,
+and a ring of ``ring`` bytes.  Each block gets a G-th of what is left
+less its 256-byte map and 44 bytes of padding, in rows of M + 3 words
+(the model and the reciprocals of its total and of the total + 16)
+rounded up to 16 bytes: at least 1 row and at most M.  On an H100
+(228 KB per SM, 132 SMs) ``arith_dec`` of B = 4096 blocks at 4 per CTA
+gets 22 rows of width 71 and ``arith_enc`` at 8 per warp 11, where
+synth4's blocks use 5 contexts.
 
 Each wrapper uses its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  The plain
@@ -73,20 +88,26 @@ MAX_FREQ = (1 << 16) - 17
 STEP = 16
 NSYM = 256          # widest model (the C model's NSYM)
 
-# warps per SM that the launch aims for: on an H100, 4096 blocks ran
-# fastest at 4 threads per CTA (8 warps per SM) in both kernels, arith_enc
-# with its model bank in global memory and arith_dec with its models in
-# shared memory; 31 warps per SM were limited by the SM's instruction
-# rate, 1 warp of 32 divergent threads by latency; arith_dec on 1024
-# blocks ran fastest at 1 thread per CTA, as this rule gives
-# (chip_smoke.py prints the sweeps)
+# warps per SM that the arith_dec launch aims for: on an H100, 4096
+# blocks ran fastest at 4 threads per CTA (8 warps per SM); 31 warps per
+# SM were limited by the SM's instruction rate, 1 warp of 32 divergent
+# threads by latency; 1024 blocks ran fastest at 1 thread per CTA, as
+# this rule gives (chip_smoke.py prints the sweeps)
 _WARPS_PER_SM = 8
+
+# arith_enc: CTAs (three warps each) per SM that the launch aims for: on
+# an H100 the blocks-per-warp sweep of chip_smoke.py ran fastest at 8 per
+# warp for 4096 blocks and at 2 for 1024, ~4 CTAs per SM either way (the
+# time grows with the CTAs per SM, not with the lanes that work); and the
+# stage buffers' defaults
+_ENC_CTAS_PER_SM = 4
+ENC_CHUNK = 64      # symbols per record / queue buffer and block
+ENC_RING = 256      # bytes of each block's output ring
 
 
 def threads_per_cta(B: int, dev: torch.device) -> int:
-    """Threads per CTA of the one-thread-per-block coder kernels
-    (arith_enc, arith_dec): the smallest power of two (at most 32) that
-    keeps the launch within
+    """Threads per CTA of ``arith_dec`` (one block per thread): the
+    smallest power of two (at most 32) that keeps the launch within
     ``_WARPS_PER_SM`` warps per SM.  Each thread runs a long divergent
     loop, so blocks that share a warp serialise where warps overlap."""
     slots = (torch.cuda.get_device_properties(dev).multi_processor_count
@@ -97,36 +118,78 @@ def threads_per_cta(B: int, dev: torch.device) -> int:
     return tpb
 
 
+def blocks_per_warp(B: int, sms: int) -> int:
+    """Blocks in the lanes of each stage warp of ``arith_enc``: the
+    smallest power of two (at most 32) that keeps the launch within
+    ``_ENC_CTAS_PER_SM`` CTAs per SM on a card of ``sms`` SMs."""
+    g = 1
+    while g < 32 and -(-B // g) > sms * _ENC_CTAS_PER_SM:
+        g *= 2
+    return g
+
+
 _CTA_RESERVED = 1024   # shared memory the runtime keeps per CTA
 
 
 def _row_stride(M: int) -> int:
-    """Words between two model rows of ``arith_dec``: M entries, the
-    total, two reciprocals, rounded up to 16 bytes (csrc/arith_dec.cu:
+    """Words between two model rows: M entries, the total, two
+    reciprocals, rounded up to 16 bytes (csrc/rc_core.cuh:
     row_stride)."""
     return (M + 7) & ~3
 
 
-def _dec_words(M: int, order: int, pool: int) -> int:
-    """Shared-memory words of one block's models in ``arith_dec``
-    (csrc/arith_dec.cu: arith_dec_words): the 64-word context map and
-    ``pool`` rows at order 1, one row at order 0, after a row padding of
-    (-M) % 4 words; an odd number of 16-byte units."""
+def _model_words(M: int, order: int, pool: int) -> int:
+    """Shared-memory words of one block's models (csrc/rc_core.cuh:
+    model_words): the 64-word context map and ``pool`` rows at order 1,
+    one row at order 0, after a row padding of (-M) % 4 words; an odd
+    number of 16-byte units."""
     w = (64 + pool * _row_stride(M) if order else _row_stride(M)) + (-M) % 4
     return 4 * (-(-w // 4) | 1)
+
+
+def _enc_stage_bytes(G: int, chunk: int, ring: int) -> int:
+    """Shared memory of ``arith_enc``'s stage buffers for G blocks: two
+    buffers of ``chunk`` 8-byte records, 4-byte reciprocals and 8-byte
+    queue entries per block, rounded up to 16 bytes, a ring of ``ring``
+    bytes and two buffers of ``chunk`` symbols per block."""
+    return -(-(40 * chunk * G) // 16) * 16 + G * (ring + 2 * chunk)
+
+
+def _enc_smem(M: int, order: int, pool: int, G: int, chunk: int,
+              ring: int) -> int:
+    """Shared memory of one ``arith_enc`` CTA (csrc/arith_enc.cu:
+    arith_enc_smem)."""
+    return 4 * G * _model_words(M, order, pool) + _enc_stage_bytes(G, chunk,
+                                                                    ring)
+
+
+def _pool_for(M: int, B: int, G: int, reserved: int, smem_per_sm: int,
+              sms: int) -> int:
+    """Order-1 rows per block when ceil(B / G) CTAs of G blocks share the
+    SMs and each CTA first gives ``reserved`` bytes to other uses (the
+    rule in the module docstring)."""
+    ctas = -(-B // G)
+    per_sm = max(1, -(-ctas // sms))
+    per_cta = smem_per_sm // per_sm - _CTA_RESERVED - reserved
+    # a block's words: the map, the row padding and at most 8 words of
+    # rounding besides the rows
+    words = per_cta // G // 4 - 64 - 3 - 8
+    return max(1, min(M, words // _row_stride(M)))
 
 
 def pool_rows(M: int, B: int, tpb: int, smem_per_sm: int, sms: int) -> int:
     """Order-1 model rows in shared memory per block of an ``arith_dec``
     launch of B blocks at ``tpb`` per CTA on a card of ``sms`` SMs with
-    ``smem_per_sm`` bytes each (the rule in the module docstring)."""
-    ctas = -(-B // tpb)
-    per_sm = max(1, -(-ctas // sms))
-    per_cta = smem_per_sm // per_sm - _CTA_RESERVED
-    # a block's words: the map, the row padding and at most 8 words of
-    # rounding besides the rows
-    words = per_cta // tpb // 4 - 64 - 3 - 8
-    return max(1, min(M, words // _row_stride(M)))
+    ``smem_per_sm`` bytes each."""
+    return _pool_for(M, B, tpb, 0, smem_per_sm, sms)
+
+
+def enc_pool_rows(M: int, B: int, per_warp: int, chunk: int, ring: int,
+                  smem_per_sm: int, sms: int) -> int:
+    """The same for an ``arith_enc`` launch of ``per_warp`` blocks per
+    CTA, its stage buffers reserved first."""
+    return _pool_for(M, B, per_warp, _enc_stage_bytes(per_warp, chunk, ring),
+                     smem_per_sm, sms)
 
 
 def default_pool(M: int, B: int, tpb: int, dev: torch.device) -> int:
@@ -271,33 +334,53 @@ class _PlainModels:
 # ---------------------------------------------------------------------------
 # arith_enc
 
-def arith_enc(blocks, lens, msyms, M: int, order: int, threads: int = 0):
+def arith_enc(blocks, lens, msyms, M: int, order: int, per_warp: int = 0,
+              pool: int = 0, chunk: int = 0, ring: int = 0):
     """Encode B blocks.
 
     blocks (B, N) uint8, lens (B,) int32 (bytes of each row that are
     coded), msyms (B,) int32 (max symbol + 1 of each block, at most M),
-    M the model width (1..256).  ``threads``: threads per CTA; 0, as
-    every caller but the launch-shape sweep of chip_smoke.py leaves it,
-    takes ``threads_per_cta(B)``.  Returns (bytes (B, 2N + 8) uint8 in stream order, counts
-    (B,) int32); bytes past a block's count are unspecified.  The
-    max-symbol byte that precedes the payload in a stream is not part of
-    it."""
+    M the model width (1..256).  Launch arguments, which do not change
+    the result, 0 taking the default as every caller but chip_smoke.py
+    does: ``per_warp`` blocks in the lanes of each stage warp (1..32;
+    ``blocks_per_warp``), ``pool`` order-1 rows in shared memory per
+    block (1..M; ``enc_pool_rows``, the contexts past them take rows of
+    a global bank), ``chunk`` symbols per stage buffer (``ENC_CHUNK``)
+    and ``ring`` bytes of output ring per block (a power of two >= 16;
+    ``ENC_RING``).  Returns (bytes (B, 2N + 8) uint8 in stream order,
+    counts (B,) int32); bytes past a block's count are unspecified.
+    The max-symbol byte that precedes the payload in a stream is not
+    part of it."""
     B, N = blocks.shape
     dev = blocks.device
     _require(blocks, "blocks", torch.uint8, (B, N), dev)
     _require(lens, "lens", torch.int32, (B,), dev)
     _require_model("arith_enc", msyms, M, order, B, dev)
+    if not (0 <= per_warp <= 32 and 0 <= pool <= M and chunk >= 0
+            and (ring == 0 or (ring >= 16 and ring & (ring - 1) == 0))):
+        raise ValueError(f"arith_enc: per_warp must be in 0..32, pool in "
+                         f"0..{M}, ring 0 or a power of two >= 16")
     if dev.type == "cpu":
         return _arith_enc_plain(blocks, lens, msyms, M, order)
     cap = 2 * N + 8
-    bank = convert.model_bank(msyms, M, order)
+    props = torch.cuda.get_device_properties(dev)
+    G = per_warp or blocks_per_warp(B, props.multi_processor_count)
+    chunk, ring = chunk or ENC_CHUNK, ring or ENC_RING
+    pool = (pool or enc_pool_rows(M, B, G, chunk, ring,
+                                  props.shared_memory_per_multiprocessor,
+                                  props.multi_processor_count)) \
+        if order else M
+    gbank = (torch.empty(B * (M - pool) * _row_stride(M) + 4,
+                         dtype=torch.int32, device=dev)
+             if pool < M else None)
     out = torch.empty((B, cap), dtype=torch.uint8, device=dev)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = cuda_build.get_lib().arith_enc_launch(
-            blocks.data_ptr(), lens.data_ptr(), bank.data_ptr(),
-            out.data_ptr(), counts.data_ptr(), B, N, M, cap, order,
-            threads or threads_per_cta(B, dev), _stream(blocks))
+            blocks.data_ptr(), lens.data_ptr(), msyms.data_ptr(),
+            None if gbank is None else gbank.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), B, N, M, cap, order, G, pool, chunk, ring,
+            _stream(blocks))
     cuda_build.check(err, "arith_enc")
     LAUNCHES["arith_enc"] += 1
     return out, counts
@@ -342,11 +425,11 @@ def arith_dec(stream, counts, lens, msyms, M: int, K: int, order: int,
     stream (B, W) uint8 (each row a payload, after the max-symbol byte),
     counts (B,) int32 (bytes that belong to each block: a read past them
     gives 0), lens (B,) int32 (bytes to decode, at most K), msyms (B,)
-    int32, M the model width (1..256), ``threads`` as in ``arith_enc``.
-    ``pool``: order-1 model rows in shared memory per block (1..M; the
-    contexts past them take rows of a global bank); 0, as every caller
-    but the comparison grid of chip_smoke.py leaves it, takes
-    ``default_pool``.  Neither changes the result.  Returns (B, K)
+    int32, M the model width (1..256).  ``threads``: threads per CTA,
+    one block each (0 takes ``threads_per_cta``).  ``pool``: order-1
+    model rows in shared memory per block (1..M; the contexts past them
+    take rows of a global bank); 0, as every caller but the comparison
+    grid of chip_smoke.py leaves it, takes ``default_pool``.  Neither changes the result.  Returns (B, K)
     uint8; bytes past a block's length are 0, and a block with fewer
     than 6 stream bytes decodes nothing."""
     B, W = stream.shape

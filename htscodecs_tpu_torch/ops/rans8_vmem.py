@@ -20,7 +20,13 @@ base[sym]`` holds as in the 4x16 tables.
     replaces ``_build_dec_kernel`` / ``_dec_vmem8`` (decode, order 0
     and 1, with the order-0 tail that reads the last N & 3 symbols from
     the final states without advancing them).  Bound by memory traffic
-    (stream bytes + tables + states in, B*N bytes out).
+    (stream bytes + tables + states in, B*N bytes out), by the chain of
+    one step in fact: the CTA's base rows and alphabets sit in shared
+    memory when they fit (``tables_in_smem``) with a slot index per row
+    (``slot_index``; ``slot_lookup_indexed`` is the lookup through it),
+    each block's stream is staged ahead of the chain in a shared ring
+    with ``cp.async``, and CTAs of ``threads`` threads (32, 64 or 128; 4
+    per block) spread a batch over all SMs.
 ``rans8_enc``  csrc/rans8_enc.cu
     replaces ``_build_enc_kernel`` / ``_enc_vmem8`` and its stitch
     sort.  Looks (start, freq) up in the block's base rows itself, as
@@ -74,13 +80,83 @@ def _dec_geometry(N: int, order: int):
     return (q, q + (N - 4 * q)) if order == 1 else (q, q)
 
 
-def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int):
-    """Decode B blocks of N bytes.
+DEC_THREADS = 32     # threads per rans8_dec CTA (8 blocks)
+STAGE = 256          # staged stream bytes per block (csrc/rans8_dec.cu: SB)
+IDX_N = 65           # slot index entries per row (csrc/rans8_dec.cu: IDX_N)
+# shared memory of one rans8_dec CTA up to which its tables go there:
+# two such CTAs fit an H100 SM
+TABLES_SMEM_MAX = 96 * 1024
+
+
+def _part(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _dec_smem(bpc: int, A: int, order: int, tables: bool) -> int:
+    """Shared memory of one ``rans8_dec`` CTA of ``bpc`` blocks
+    (csrc/rans8_dec.cu: rans8_dec_smem): the stream rings, then with
+    ``tables`` the base rows, the alphabets and the slot index, each part
+    rounded up to 16 bytes."""
+    s = bpc * STAGE
+    if tables:
+        nrows = A if order == 1 else 1
+        s += (_part(bpc * nrows * (A + 1) * 2) + _part(bpc * A)
+              + _part(bpc * nrows * IDX_N))
+    return s
+
+
+def tables_in_smem(threads: int, A: int, order: int) -> bool:
+    """Whether a ``rans8_dec`` launch of ``threads`` per CTA copies its
+    tables into shared memory: when the CTA's shared memory stays within
+    ``TABLES_SMEM_MAX`` (and A < 256, so that the index's counts fit a
+    byte).  Wider tables are read from global memory."""
+    return A < 256 and _dec_smem(threads // 4, A, order, True) <= TABLES_SMEM_MAX
+
+
+def slot_index(bases: torch.Tensor) -> torch.Tensor:
+    """The kernel's slot index of monotone base rows (..., A+1) int:
+    (..., IDX_N) int64, entry j = the number of the first A bases that
+    are <= 64 j."""
+    A = bases.shape[-1] - 1
+    x = torch.arange(IDX_N, device=bases.device) * 64
+    return (bases[..., :A, None].to(torch.int64) <= x).sum(dim=-2)
+
+
+def slot_lookup_indexed(bases: torch.Tensor, index: torch.Tensor,
+                        m: torch.Tensor):
+    """``rans_vmem._slot_lookup`` through the slot index, as the kernel
+    bisects: rows (..., A+1), index (..., IDX_N), slots m (...) ->
+    (sym, base, freq), each (...) int64.  The count of bases <= m lies
+    between the index entries m // 64 and m // 64 + 1."""
+    j = (m >> 6).to(torch.int64)
+    lo = index.gather(-1, j[..., None])[..., 0]
+    hi = index.gather(-1, j[..., None] + 1)[..., 0]
+    rows = bases.to(torch.int64)
+    while bool((lo < hi).any()):
+        open_ = lo < hi
+        mid = (lo + hi) >> 1
+        le = rows.gather(-1, mid.clamp(max=rows.shape[-1] - 1)[..., None])[..., 0] <= m
+        lo = torch.where(open_ & le, mid + 1, lo)
+        hi = torch.where(open_ & ~le, mid, hi)
+    sym = (lo - 1).clamp(min=0)
+    bs = torch.where(lo > 0, rows.gather(-1, sym[..., None])[..., 0],
+                     torch.zeros_like(lo))
+    f = rows.gather(-1, (sym + 1)[..., None])[..., 0] - bs
+    return sym, bs, f
+
+
+def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int,
+              threads: int = 0, global_tables: bool = False):
+    """Decode B blocks.
 
     states (B,4) int32, stream (B,W) uint8 (the bytes after the 16
     state bytes), counts (B,) int32 (bytes that belong to each block: a
     read past them gives 0), tables with bases (B, A if order else 1,
-    A+1) int16.  Order 0 needs N >= 4.  Returns (B,N) uint8.
+    A+1) int16.  Order 0 needs N >= 4.  Launch arguments, which do not
+    change the result: ``threads`` per CTA (32, 64 or 128; 0 takes
+    ``DEC_THREADS``), ``global_tables`` reads the tables from global
+    memory even where ``tables_in_smem`` would copy them (the wide-table
+    route).  Returns (B,N) uint8.
     """
     B, W = stream.shape
     A = tables.alpha.shape[1]
@@ -96,14 +172,20 @@ def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int):
     if order == 0 and N < 4:
         raise ValueError("rans8_dec: order 0 needs N >= 4 (a full step "
                          "would run before the tail is read)")
+    if threads not in (0, 32, 64, 128):
+        raise ValueError("rans8_dec: threads must be 0, 32, 64 or 128")
     if dev.type == "cpu":
         return _rans8_dec_plain(states, stream, counts, tables, N, order)
+    threads = threads or DEC_THREADS
+    smem_tables = not global_tables and tables_in_smem(threads, A, order)
+    if stream.data_ptr() % 16:
+        stream = stream.clone()         # the kernel stages aligned segments
     out = torch.empty((B, N), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = cuda_build.get_lib().rans8_dec_launch(
             states.data_ptr(), stream.data_ptr(), counts.data_ptr(),
             tables.bases.data_ptr(), tables.alpha.data_ptr(), out.data_ptr(),
-            B, W, A, N, order, _stream(stream))
+            B, W, A, N, order, threads, int(smem_tables), _stream(stream))
     cuda_build.check(err, "rans8_dec")
     LAUNCHES["rans8_dec"] += 1
     return out

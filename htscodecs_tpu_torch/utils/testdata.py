@@ -37,11 +37,13 @@ def synth_quality(n_blocks: int, n: int, seed: int = 42) -> np.ndarray:
     return out
 
 
-def synth_wide(n_blocks: int, n: int, nsym: int, seed: int = 7) -> np.ndarray:
-    """``nsym``-symbol data with pair structure (every odd byte repeats
-    its predecessor), so order 1 compresses it: (n_blocks, n) uint8."""
+def synth_wide(n_blocks: int, n: int, nsym: int, seed: int = 7,
+               lo: int = 33) -> np.ndarray:
+    """``nsym``-symbol data (bytes lo .. lo + nsym - 1) with pair
+    structure (every odd byte repeats its predecessor), so order 1
+    compresses it: (n_blocks, n) uint8."""
     rng = np.random.default_rng(seed)
-    out = rng.integers(33, 33 + nsym, size=(n_blocks, n)).astype(np.uint8)
+    out = rng.integers(lo, lo + nsym, size=(n_blocks, n)).astype(np.uint8)
     out[:, 1::2] = out[:, 0::2][:, :out[:, 1::2].shape[1]]
     return out
 
@@ -91,13 +93,15 @@ def synth_tables(blocks: np.ndarray, shift, order: int):
     return alpha, packed, A
 
 
-def r8_tables(blocks: np.ndarray, order: int):
+def r8_tables(blocks: np.ndarray, order: int, max_a: int = 96):
     """Dense rANS 4x8 tables of a batch from the native table build
     (``native.r8_build_tables_dense``), padded to the batch's alphabet
     bucket as the batch layer pads them: (alpha (B,A) u8, packed
-    (B,A,A) i32 — (B,A) for order 0).  Rows normalise to 4095 slots."""
+    (B,A,A) i32 — (B,A) for order 0).  Rows normalise to 4095 slots.
+    ``max_a`` up to 256 gives alphabets wider than the batch layer's
+    (unpadded past the widest bucket), for the kernels' grid."""
     from .. import native
-    res = [native.r8_build_tables_dense(b, order) for b in blocks]
+    res = [native.r8_build_tables_dense(b, order, max_a) for b in blocks]
     if any(r is None for r in res):
         raise ValueError("r8_tables: alphabet wider than the dense tables")
     amax = max(len(r[1]) for r in res)

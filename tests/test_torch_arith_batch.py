@@ -187,3 +187,30 @@ def test_fqz_without_the_native_library_only_the_host_engine_works(
     assert port_batch.fqz_compress_blocks(
         jobs, engine="host", device="cpu") == want
     assert port_batch.fqz_decompress_blocks(want) == [jobs[0][0].tobytes()]
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_arith_five_byte_payload_decodes_to_zeros(order):
+    """A reference quirk that the port keeps: an order-0/1 stream whose
+    range-coder payload is exactly 5 bytes decodes to zeros, since every
+    decoder refuses to prime on fewer than 6 bytes.  np.full(8, 3) gives
+    such a stream at both orders.  The host coders, the batch entries
+    (a group of three, so the batched engine codes it) and the JAX
+    package give the same bytes each way, so no change to the kernels
+    can move the quirk without a test failing."""
+    block = np.full(8, 3, np.uint8)
+    want = ref_arith.compress(block, order)
+    assert want[0] == order and len(want) == 3 + 5    # flags, len, max sym
+    assert want.hex() == ("00080400c7e93e90", "01080400f1fa4f9d")[order]
+    assert port_arith.compress(block, order) == want
+    blocks = [block] * 3
+    assert port_batch.arith_compress_blocks(
+        blocks, order, engine="device", device="cpu") == [want] * 3
+    assert ref_batch.arith_compress_blocks(
+        blocks, order, engine="device") == [want] * 3
+    zeros = bytes(8)
+    assert port_arith.uncompress(want) == ref_arith.uncompress(want) == zeros
+    assert port_batch.arith_uncompress_blocks(
+        [want] * 3, engine="device", device="cpu") == [zeros] * 3
+    assert ref_batch.arith_uncompress_blocks(
+        [want] * 3, engine="device") == [zeros] * 3

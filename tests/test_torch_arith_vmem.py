@@ -288,7 +288,7 @@ def test_wrappers_take_the_plain_versions_on_cpu_tensors():
 
 def _smem_bytes(M, rows):
     """A block's shared memory in the kernel: the map and the rows."""
-    return 4 * port._dec_words(M, 1, rows)
+    return 4 * port._model_words(M, 1, rows)
 
 
 @pytest.mark.parametrize("smem_per_sm,sms", [(233472, 132), (167936, 108),
@@ -358,3 +358,98 @@ def test_decoder_division_free_step_is_exact():
     want = x <= np.minimum(code // r, 65535)
     got = (x <= 65535) & (x * r <= code)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# arith_enc's launch: blocks per warp, the pool beside the stage buffers
+
+@pytest.mark.parametrize("smem_per_sm,sms", [(233472, 132), (167936, 108),
+                                             (65536, 4)])
+def test_enc_pool_rule_bounds(smem_per_sm, sms):
+    """arith_enc reserves its stage buffers (records, queue entries and
+    the output ring of each block) before the order-1 rows: at least 1
+    row and at most M, one CTA within the 227 KB a CTA may hold at every
+    width, and the CTAs the launch aims to hold per SM within the SM."""
+    prev = {}
+    for M in (1, 2, 40, 71, 74, 255, 256):
+        for G in (1, 4, 8, 32):
+            for chunk, ring in ((port.ENC_CHUNK, port.ENC_RING), (1, 16)):
+                for B in (1, 7, 130, 1024, 4096, 65536):
+                    rows = port.enc_pool_rows(M, B, G, chunk, ring,
+                                              smem_per_sm, sms)
+                    assert 1 <= rows <= M
+                    smem = port._enc_smem(M, 1, rows, G, chunk, ring)
+                    assert smem <= 232448
+                    per_sm = max(1, -(-(-(-B // G)) // sms))
+                    if rows > 1:
+                        assert per_sm * (smem + 1024) <= smem_per_sm
+                    assert rows <= prev.get((M, G, chunk), M)
+                    prev[(M, G, chunk)] = rows
+    if (smem_per_sm, sms) == (233472, 132):
+        # synth4 (4096 blocks, width 71, 5 contexts) keeps every row in
+        # shared memory at the default launch
+        G = port.blocks_per_warp(4096, sms)
+        assert port.enc_pool_rows(71, 4096, G, port.ENC_CHUNK, port.ENC_RING,
+                                  smem_per_sm, sms) >= 5
+
+
+def test_blocks_per_warp_rule():
+    prev = 1
+    for B in (1, 5, 130, 528, 529, 1024, 4096, 16896, 10**6):
+        G = port.blocks_per_warp(B, 132)
+        assert 1 <= G <= 32 and G >= prev
+        assert G == 32 or -(-B // G) <= 4 * 132
+        assert G == 1 or -(-B // (G // 2)) > 4 * 132
+        prev = G
+    assert port.blocks_per_warp(4096, 132) == 8
+
+
+def test_enc_launch_arguments_leave_the_plain_version_alone():
+    """On CPU tensors the launch arguments change nothing (the plain
+    version runs); values the kernel cannot take are refused."""
+    blocks, lens, ms = testdata.arith_blocks(3, 40, 6, seed=9)
+    bt, lt, mt = (torch.from_numpy(x) for x in (blocks, lens, ms))
+    M = int(ms.max())
+    want = port.arith_enc(bt, lt, mt, M, 1)
+    got = port.arith_enc(bt, lt, mt, M, 1, per_warp=1, pool=1, chunk=1,
+                         ring=16)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    for bad in (dict(per_warp=33), dict(pool=M + 1), dict(ring=24),
+                dict(ring=8), dict(chunk=-1)):
+        with pytest.raises(ValueError):
+            port.arith_enc(bt, lt, mt, M, 1, **bad)
+
+
+def test_encoder_range_step_is_exact_for_every_total():
+    """arith_enc.cu's range chain (rc_core.cuh: rc_udiv, rc_range_step)
+    in numpy.  r = range // total through the reciprocal kept beside the
+    total and one correction, for every total 1..65535 at ranges the
+    coder holds: 2^24 (the least after a renormalisation), 2^32 - 1 (the
+    start), and multiples of the total and one less.  Then the
+    renormalisation as one shift of 0, 8 or 16 bits against RC_Encode's
+    two tests."""
+    tab = port._recip_table(torch.device("cpu")).numpy().view(np.uint32)
+    d = np.arange(1, 65536, dtype=np.uint64)
+    m = tab[1:].astype(np.uint64)
+    k = (np.uint64(0xFFFFFFFF) // d) // np.uint64(3) + np.uint64(1)
+    for n in (np.full_like(d, 1 << 24), np.full_like(d, 0xFFFFFFFF),
+              d * k, d * k - np.uint64(1), d * (k + np.uint64(1))):
+        n = np.maximum(n, d)
+        q = (n * m) >> np.uint64(32)
+        r = q + (n - q * d >= d)
+        np.testing.assert_array_equal(r, n // d)
+    rng = np.random.default_rng(5)
+    rg = np.concatenate([rng.integers(0, 1 << 32, 100000, dtype=np.uint64),
+                         np.arange(0, 1 << 17, 7, dtype=np.uint64),
+                         np.array([0, (1 << 16) - 1, 1 << 16, (1 << 24) - 1,
+                                   1 << 24], np.uint64)])
+    ns = (rg < (1 << 24)).astype(np.uint64) + (rg < (1 << 16))
+    got = (rg << (np.uint64(8) * ns)) & np.uint64(0xFFFFFFFF)
+    want, shifts = rg.copy(), np.zeros_like(rg)
+    for _ in range(2):
+        low = want < (1 << 24)
+        want = np.where(low, (want << np.uint64(8)) & np.uint64(0xFFFFFFFF),
+                        want)
+        shifts += low
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ns, shifts)

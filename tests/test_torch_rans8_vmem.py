@@ -173,3 +173,69 @@ def test_densify_matches_reference_densify():
     got = rans_v2._densify(torch.from_numpy(blocks), torch.from_numpy(alpha))
     want = np.asarray(ref._densify(jnp.asarray(blocks), jnp.asarray(alpha)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dec_table_route_rule():
+    """rans8_dec copies a CTA's tables into shared memory only while the
+    CTA stays within TABLES_SMEM_MAX, at every alphabet; wider tables
+    take the global route, whose CTA holds only the stream rings."""
+    for order in (0, 1):
+        for threads in (32, 64, 128):
+            prev = True
+            for A in range(1, 257):
+                smem = rans8_vmem.tables_in_smem(threads, A, order)
+                if smem:
+                    assert rans8_vmem._dec_smem(threads // 4, A, order, True) \
+                        <= rans8_vmem.TABLES_SMEM_MAX
+                assert prev or not smem         # one switch, at one A
+                prev = smem
+                assert rans8_vmem._dec_smem(threads // 4, A, order, False) \
+                    <= rans8_vmem.TABLES_SMEM_MAX
+    # synth4 (A = 8) and wide41 (A = 48) keep their tables in shared
+    # memory at the default CTA size; order-1 tables of 256 symbols do not
+    T = rans8_vmem.DEC_THREADS
+    assert rans8_vmem.tables_in_smem(T, 8, 1)
+    assert rans8_vmem.tables_in_smem(T, 48, 1)
+    assert not rans8_vmem.tables_in_smem(T, 256, 1)
+
+
+def test_dec_launch_arguments_leave_the_plain_version_alone():
+    blocks, alpha, packed = _setup(5, 33, 3, 1)
+    t = convert.tables8_from_reference(alpha, packed, "cpu")
+    sym, ctx, K, geom = rans_vmem.enc_inputs(torch.from_numpy(blocks), t, 1)
+    st, by, cn = rans8_vmem.rans8_enc(sym, ctx, t, K, geom, 1)
+    stream = by[:, :int(cn.max())].contiguous()
+    for kw in ({}, dict(threads=64), dict(threads=128, global_tables=True)):
+        out = rans8_vmem.rans8_dec(st, stream, cn, t, 33, 1, **kw)
+        np.testing.assert_array_equal(out.numpy(), blocks)
+    with pytest.raises(ValueError):
+        rans8_vmem.rans8_dec(st, stream, cn, t, 33, 1, threads=48)
+
+
+def test_slot_index_lookup_equals_the_bisection_for_every_slot():
+    """rans8_dec's slot index (entry j: the number of bases <= 64 j) and
+    the lookup through it give rans_vmem._slot_lookup's (symbol, base,
+    frequency) for every 12-bit slot, on random monotone rows with holes
+    (repeated bases), rows of 4095 slots, a row whose first base is past
+    slot 0 and the rows of a real 4x8 table build."""
+    rng = np.random.default_rng(8)
+    rows = []
+    for A in (1, 2, 3, 8, 40, 63, 200):
+        for _ in range(4):
+            tot = int(rng.choice([4095, 4096]))
+            cuts = np.sort(rng.integers(0, tot + 1, A - 1))
+            rows.append(np.concatenate([[0], cuts, [tot]]))
+        first = np.concatenate([[100], np.linspace(100, 4095, A).astype(int)[1:],
+                                [4095]])
+        rows.append(first)
+    blocks, alpha, packed = _setup(5, 516, 6, 1)
+    t = convert.tables8_from_reference(alpha, packed, "cpu")
+    real = [r.astype(np.int64) for r in t.bases.numpy().reshape(-1, t.bases.shape[-1])]
+    m = torch.arange(4096)[:, None]
+    for r in [np.asarray(r, np.int64) for r in rows] + real:
+        bases = torch.from_numpy(r)[None, None, :].expand(4096, 1, -1)
+        idx = rans8_vmem.slot_index(bases)
+        got = rans8_vmem.slot_lookup_indexed(bases, idx, m)
+        want = rans_vmem._slot_lookup(bases, m)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
