@@ -8,16 +8,18 @@ What it does, in order (any failure exits non-zero):
 
 1. prints the device and builds the host C library and the CUDA kernel
    library from the sources in this checkout;
-2. holds each CUDA kernel (rans16_dec, sf_fetch, rans16_enc,
-   rans16_enc_fused, rans8_enc, rans8_dec, arith_enc, arith_dec, rc_enc,
-   rans16_dec_packed, rans16_enc_packed) against its plain PyTorch
-   version on the card — integer codecs, so the tolerance is 0 — over
-   ragged batch sizes, block lengths with every tail, four alphabet
-   buckets, both orders, 10/12/mixed table precision (4x16) and
-   truncated and garbage streams; rans16_enc_fused is also held against
-   the sf_fetch + rans16_enc pair, and the two packed-row kernels
-   against rans16_enc / rans16_dec on the same tables (holes
-   included); the range-coder kernels run over model widths 2..256,
+2. holds each CUDA kernel (rans16_enc_packed, the one rANS 4x16
+   encoder; rans16_dec, the one 4x16 decoder, through both its entries,
+   rans16_dec on base rows and rans16_dec_packed on packed rows;
+   rans8_enc, rans8_dec, arith_enc, arith_dec, rc_enc) against its plain
+   PyTorch version on the card — integer codecs, so the tolerance is 0 —
+   over ragged batch sizes, block lengths with every tail, four alphabet
+   buckets, both orders, 10/12/mixed table precision (4x16, holes and
+   empty rows included) and truncated and garbage streams; the 4x16
+   decoder's entries and rans8_dec at 32, 64 and 128 threads per CTA
+   and through their global-table routes, rans8_dec also on 4x8
+   alphabets of 128 to 256 symbols; the range-coder kernels run over
+   model widths 2..256,
    ragged lengths, a normalising input, truncated and garbage streams,
    deferred-byte runs (one of 5000 bytes; 64 that end at every address
    modulo the small ring), totals of 0/1/2/65535 and frequencies of 0,
@@ -27,9 +29,8 @@ What it does, in order (any failure exits non-zero):
    and a 16-byte ring, and at 32 blocks per warp with 16-symbol buffers,
    arith_dec at order
    1 with its default pool and pools of 1 and 2 rows (the global-bank
-   route), and at M = 256 with every context in use; rans8_dec at 32,
-   64 and 128 threads per CTA and through the wide-table route, and on
-   4x8 alphabets of 128 to 256 symbols; blocks holding byte 255
+   route), and at M = 256 with every context in use; blocks holding
+   byte 255
    (max-symbol byte 0) and blocks whose range-coder payload is 5 bytes
    (they decode to zeros, as in the reference) go through the arith
    batch entries;
@@ -42,44 +43,45 @@ What it does, in order (any failure exits non-zero):
    of order-1 blocks in the shift band and of host rebuilds is
    printed); the synth4 batches four more times, through the device-
    and the host-table route in turns (``TABLES_DEVICE_MIN`` above B for
-   the host route), whose streams must equal the main path's; the
+   the host route), each launching the one encoder and nothing else,
+   whose streams must equal the main path's; the
    ``rans_pallas`` path (``tables_v2.build_o*_device``,
    one ``enc_o*_batch`` / ``dec_o*_batch`` call per shift group, equal
-   to ``rans_v2``'s encode block for block, one launch of the packed
-   kernel per call and none of any other) at both orders; then
-   ``batch.r4x8_compress_blocks`` / ``r4x8_uncompress_blocks`` (rANS
-   4x8) on the same three batches; then the 4x16 order-1 batch once
-   more under ``set_enc_variant(row_fetch="vmem")``; then
+   to ``rans_v2``'s encode block for block, one launch of the encoder,
+   or of the decoder's packed entry, per call and none of any other) at
+   both orders; then ``batch.r4x8_compress_blocks`` /
+   ``r4x8_uncompress_blocks`` (rANS 4x8) on the same three batches; then
    ``batch.arith_compress_blocks`` / ``arith_uncompress_blocks`` on the
    quality batch at order 0 and 1 and on the wide batch at order 1; then
    ``batch.fqz_compress_blocks(engine="device")`` on 192 jobs of 10000
    records x 150 quality values, decoded back through
    ``fqz_decompress_blocks``.  Every block must round-trip, a spread
    sample of streams must be byte-identical to the host coder's, the
-   "vmem" streams must equal the default variant's, and exactly the
-   kernels of each path must have been launched;
+   and exactly the kernels of each path must have been launched;
 4. profiles one more pass of each order-1 main path (host seconds by
    function), then, at the shapes the main path gave each kernel,
    holds it against its plain version once more and times it (CUDA
    events, warm, median of 5) beside its roofline bound, its plain
    version (one run; the range-coder kernels' plain versions at a
-   length cut to 8192) and, for sf_fetch, ``torch.gather``; times the
-   two 4x16 encode variants whole, tensor preparation included, then
-   those two and the packed encode on the rans_pallas path's largest
-   shift group (and both packed kernels on the second shift group),
-   the device table build, arith_dec at each arith main-path shape (with
+   length cut to 8192); the 4x16 encoder and the decoder's packed entry
+   also on the rans_pallas path's largest shift group and its second
+   one; times the device table build, arith_dec at each arith main-path
+   shape (with
    its default pool and the blocks whose contexts overflow it),
    arith_enc at 1 to 32 blocks per warp at each arith main-path shape,
    arith_dec at 1 to 32 threads per CTA and its pool sizes, and
-   rans8_dec at 32 to 128 threads per CTA and through the wide-table
-   route at each 4x8 main-path shape; prints the compress wall of both
+   rans16_dec and rans8_dec at 32 to 128 threads per CTA and through
+   their wide-table routes at each main-path shape; prints the compress
+   wall of both
    table routes, at B and at group sizes 4 to 1024 around
    ``TABLES_DEVICE_MIN``.
 
 ``--ab DIR`` runs none of that: it times arith_enc, arith_dec,
-rans8_dec and rc_enc of this checkout against those of the checkout at
-DIR (the parent commit, unpacked with ``git archive``), in turns, on
-the main paths' inputs, and fails if any output differs.
+rans8_dec, rc_enc, the 4x16 encoder (against the parent's whole
+``rans_vmem.enc_batch`` where it has one, and its rans16_enc_packed) and
+both 4x16 decoder entries of this checkout against those of the
+checkout at DIR (the parent commit, unpacked with ``git archive``), in
+turns, on the main paths' inputs, and fails if any output differs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -168,52 +170,71 @@ def garbage_states(B, N):
                          dtype=torch.int64).to(torch.int32).to(DEV)
 
 
+def same_suffix(w1, w2, counts) -> bool:
+    """Equality of the last counts[b] elements of each row (where the
+    4x16 encoder leaves each block's stream)."""
+    cap = w1.shape[1]
+    live = torch.arange(cap, device=w1.device)[None, :] >= cap - counts[:, None]
+    return bool(((w1 == w2) | ~live).all())
+
+
+# the 4x16 decoder's launches (threads, global_tables): the default, larger
+# CTAs, and the global-table route at the smallest CTA
+DEC16_SHAPES = ((0, False), (64, False), (128, False), (32, True))
+
+
 def check_case(blocks, sv, order, label, garbage=False) -> None:
-    """The four rANS 4x16 kernels on one case."""
+    """The 4x16 kernels on one case: the one encoder (per-block shift)
+    and both entries of the one decoder (base rows with the block's word
+    counts; packed rows, reads bounded by the row) at each of
+    DEC16_SHAPES, each against its plain version; the decoders must
+    return the input and agree with each other on the encoder's
+    streams.  synth_tables leaves a hole (freq 0) for every pair a block
+    does not contain and an empty row for every unused context."""
     B, N = blocks.shape
     alpha, packed, _A = testdata.synth_tables(blocks, sv, order)
-    tables = convert.tables_from_reference(alpha, packed, sv, DEV)
     bt = torch.from_numpy(blocks).to(DEV)
-    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
+    al = torch.from_numpy(alpha).to(DEV)
+    pk = torch.from_numpy(packed.reshape(B, -1)).to(DEV)
+    svt = torch.from_numpy(np.ascontiguousarray(sv, np.int32)).to(DEV)
+    tables = convert.tables_from_packed(al, pk.view(packed.shape), svt)
 
-    sf_k = rans_vmem.sf_fetch(tbl, qidx)
-    sf_p = rans_vmem._sf_fetch_plain(tbl, qidx)
-    if not torch.equal(sf_k, sf_p):
-        fail(f"sf_fetch != plain at {label}")
-
-    enc_k = rans_vmem.rans16_enc(sf_k, tables.shift, K, geom, order)
-    enc_p = rans_vmem._rans16_enc_plain(sf_k, tables.shift, K, geom, order)
+    enc_k = rans_vmem.rans16_enc_packed(bt, al, pk, svt, order)
+    enc_p = rans_vmem._rans16_enc_packed_plain(bt, al, pk, svt, order)
     torch.cuda.synchronize()
-    if not same_streams(enc_k, enc_p):
-        fail(f"rans16_enc != plain at {label}")
-
-    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
-    fus_k = rans_vmem.rans16_enc_fused(sym, ctx, tables, K, geom, order)
-    fus_p = rans_vmem._rans16_enc_fused_plain(sym, ctx, tables, K, geom, order)
-    torch.cuda.synchronize()
-    if not same_streams(fus_k, fus_p):
-        fail(f"rans16_enc_fused != plain at {label}")
-    if not same_streams(fus_k, enc_k):
-        fail(f"rans16_enc_fused != sf_fetch + rans16_enc at {label}")
-
     st_k, wd_k, cn_k = enc_k
-    W = max(int(cn_k.max()), 1)
-    words = wd_k[:, :W].contiguous()
-    variants = [("", st_k, cn_k)]
+    if not (torch.equal(st_k, enc_p[0]) and torch.equal(cn_k, enc_p[2])
+            and same_suffix(wd_k, enc_p[1], cn_k)):
+        fail(f"rans16_enc_packed != plain at {label}")
+
+    words = convert.words_forward(wd_k, cn_k).contiguous()
+    W = words.shape[1]
+    variants = [("", st_k, words, cn_k)]
     if garbage:
-        # a truncated stream (reads bounded by the block's own count)
-        # and arbitrary states with bit 31 set: kernel and plain
-        # version must still agree bit for bit
-        variants += [(" truncated", st_k, cn_k // 2),
-                     (" garbage", garbage_states(B, N), cn_k)]
-    for tag, st, cn in variants:
-        out_k = rans_vmem.rans16_dec(st, words, cn, tables, N, order)
-        out_p = rans_vmem._rans16_dec_plain(st, words, cn, tables, N, order)
-        torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
-            fail(f"rans16_dec != plain at {label}{tag}")
-        if not tag and not torch.equal(out_k, bt):
-            fail(f"rans16_dec did not return the input at {label}")
+        # a truncated stream (reads bounded by the block's own count, or
+        # by the row on the packed route) and arbitrary states with bit
+        # 31 set: kernels and plain versions must still agree bit for bit
+        variants += [(" truncated", st_k, words[:, :max(W // 2, 1)].contiguous(),
+                      cn_k // 2),
+                     (" garbage", garbage_states(B, N), words, cn_k)]
+    for tag, st, wd, cn in variants:
+        out_p = rans_vmem._rans16_dec_plain(st, wd, cn, tables, N, order)
+        pkd_p = rans_vmem._rans16_dec_packed_plain(st, wd, pk, al, svt, N, order)
+        for threads, glob in DEC16_SHAPES:
+            out_k = rans_vmem.rans16_dec(st, wd, cn, tables, N, order,
+                                         threads=threads, global_tables=glob)
+            pkd_k = rans_vmem.rans16_dec_packed(st, wd, pk, al, svt, N, order,
+                                                threads=threads,
+                                                global_tables=glob)
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, out_p):
+                fail(f"rans16_dec != plain at {label}{tag} threads={threads} "
+                     f"global_tables={glob}")
+            if not torch.equal(pkd_k, pkd_p):
+                fail(f"rans16_dec_packed != plain at {label}{tag} "
+                     f"threads={threads} global_tables={glob}")
+        if not tag and not (torch.equal(out_p, bt) and torch.equal(pkd_p, bt)):
+            fail(f"the 4x16 decoders did not return the input at {label}")
 
 
 # rans8_dec (threads, global_tables): the default, larger CTAs, and the
@@ -451,73 +472,6 @@ def phase_kernels_rc(quick: bool) -> int:
     return n + 1
 
 
-def check_case_packed(blocks, sv, order, label, garbage=False) -> None:
-    """The two packed-row kernels on one case (tables at one precision,
-    holes included), against their plain versions and against the
-    rans_v2 engine's kernels (rans16_enc via sf_fetch, rans16_dec) on
-    the same tables."""
-    B, N = blocks.shape
-    alpha, packed, A = testdata.synth_tables(blocks, sv, order)
-    bt = torch.from_numpy(blocks).to(DEV)
-    al = torch.from_numpy(alpha).to(DEV)
-    pk = torch.from_numpy(packed.reshape(B, -1)).to(DEV)
-    enc_k = rans_pallas.rans16_enc_packed(bt, al, pk, sv, order)
-    enc_p = rans_pallas._rans16_enc_packed_plain(bt, al, pk, sv, order)
-    tables = convert.tables_from_packed(al, pk.view(packed.shape), sv)
-    enc_v2 = rans_vmem.enc_batch(bt, tables, order)
-    torch.cuda.synchronize()
-    if not same_streams(enc_k, enc_p):
-        fail(f"rans16_enc_packed != plain at {label}")
-    if not same_streams(enc_k, enc_v2):
-        fail(f"rans16_enc_packed != sf_fetch + rans16_enc at {label}")
-
-    st_k, wd_k, cn_k = enc_k
-    W = max(int(cn_k.max()), 1)
-    words = wd_k[:, :W].contiguous()
-    variants = [("", st_k, words)]
-    if garbage:
-        # truncated words (reads past the row give 0) and arbitrary
-        # states with bit 31 set
-        variants += [(" truncated", st_k, words[:, :max(W // 2, 1)].contiguous()),
-                     (" garbage", garbage_states(B, N), words)]
-    for tag, st, wd in variants:
-        out_k = rans_pallas.rans16_dec_packed(st, wd, pk, al, sv, N, order)
-        out_p = rans_pallas._rans16_dec_packed_plain(st, wd, pk, al, sv, N,
-                                                     order)
-        torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
-            fail(f"rans16_dec_packed != plain at {label}{tag}")
-        if not tag:
-            if not torch.equal(out_k, bt):
-                fail(f"rans16_dec_packed did not return the input at {label}")
-            out_v2 = rans_vmem.rans16_dec(st, wd, cn_k, tables, N, order)
-            if not torch.equal(out_k, out_v2):
-                fail(f"rans16_dec_packed != rans16_dec at {label}")
-
-
-def phase_kernels_packed(quick: bool) -> int:
-    """The comparison grid of the two packed-row kernels: ragged B, N
-    with tails 1, 3, 2 (and 0 at 4096), alphabet buckets 4, 48, 96 (16
-    at 4096), both orders, shift 10 and 12; synth_tables leaves a hole
-    (freq 0) for every pair a block does not contain."""
-    Bs, Ns, nsyms = (1, 5, 130, 512), (33, 511, 514), (3, 40, 90)
-    if quick:
-        Bs, Ns, nsyms = (5, 130), (33, 514), (3, 40)
-    cases = [(B, N, nsym) for B in Bs for N in Ns for nsym in nsyms]
-    cases.append((130, 4096, 14))
-    n = 0
-    for B, N, nsym in cases:
-        blocks = testdata.synth_wide(B, N, nsym, seed=B * 100003 + N * 13 + nsym + 1)
-        for order in (0, 1):
-            for sv in (10, 12):
-                check_case_packed(blocks, sv, order,
-                                  f"packed B={B} N={N} nsym={nsym} "
-                                  f"order={order} shift={sv}",
-                                  garbage=(N == 514))
-                n += 1
-    return n
-
-
 def phase_kernels(quick: bool) -> int:
     """The comparison grid.  The plain versions are bound by the host's
     launch rate (time ~ steps, whatever B), so the longest length runs
@@ -572,10 +526,7 @@ class Codec(NamedTuple):
 
 
 R4X16 = Codec("rans4x16", batch.compress_blocks, batch.uncompress_blocks,
-              rans4x16.compress, ("rans16_dec", "sf_fetch", "rans16_enc"))
-R4X16_VMEM = Codec("rans4x16 row_fetch=vmem", batch.compress_blocks,
-                   batch.uncompress_blocks, rans4x16.compress,
-                   ("rans16_dec", "rans16_enc_fused"))
+              rans4x16.compress, ("rans16_dec", "rans16_enc_packed"))
 R4X8 = Codec("rans4x8", batch.r4x8_compress_blocks,
              batch.r4x8_uncompress_blocks, rans4x8.compress,
              ("rans8_enc", "rans8_dec"))
@@ -617,7 +568,7 @@ def run_main_path(codec, name, blocks, order, sample):
         f"uncompress {t2 - t1:.3f} s ({mb / (t2 - t1):.1f} MB/s) "
         f"ratio {csize / (B * N):.4f} launches {launches} "
         f"table routes {routes}")
-    if codec in (R4X16, R4X16_VMEM):
+    if codec is R4X16:
         want = "device" if B >= batch.TABLES_DEVICE_MIN else "host"
         other = "host" if want == "device" else "device"
         if routes[want] < 1 or routes[other]:
@@ -689,14 +640,16 @@ def run_table_routes(blocks, order, streams_want, name, engine="auto",
     """compress_blocks on a batch through both table routes in turns
     (device, host, host, device; TABLES_DEVICE_MIN set to B for the
     device route and above B for the host route), warm: each run must
-    take its route and give ``streams_want`` (the first run's streams
-    when None), block for block.  Returns the compress walls by route."""
+    take its route, launch the one 4x16 encoder and no other kernel,
+    and give ``streams_want`` (the first run's streams when None), block
+    for block.  Returns the compress walls by route."""
     B, N = blocks.shape
     keep = batch.TABLES_DEVICE_MIN
     walls = {"device": [], "host": []}
     for route in ("device", "host", "host", "device"):
         batch.TABLES_DEVICE_MIN = B if route == "device" else B + 1
         reset_routes()
+        rans_vmem.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         streams = batch.compress_blocks(blocks, order=order, engine=engine)
@@ -704,6 +657,8 @@ def run_table_routes(blocks, order, streams_want, name, engine="auto",
         walls[route].append(time.perf_counter() - t0)
         batch.TABLES_DEVICE_MIN = keep
         routes = dict(batch.TABLE_ROUTES)
+        expect_only(f"{name} {route}-table route", rans_vmem.LAUNCHES,
+                    "rans16_enc_packed")
         other = "host" if route == "device" else "device"
         if routes[route] < 1 or routes[other]:
             fail(f"{name}: expected the {route}-table route, got {routes}")
@@ -898,6 +853,15 @@ def streams_err(got, want) -> int:
                max_abs_diff(wd, wd2, live))
 
 
+def streams_err_suffix(got, want) -> int:
+    """The same for the 4x16 encoder, whose streams end each row."""
+    (st, wd, cn), (st2, wd2, cn2) = got, want
+    cap = wd.shape[1]
+    live = torch.arange(cap, device=DEV)[None, :] >= cap - cn[:, None]
+    return max(max_abs_diff(st, st2), max_abs_diff(cn, cn2),
+               max_abs_diff(wd, wd2, live))
+
+
 def once(fn):
     return cuda_ms(fn, reps=1, warm=0)
 
@@ -919,108 +883,85 @@ def entry(name, src, replaces, shape, launches, ms, plain_ms, err, nbytes,
             "library_ms": library_ms, "shape": shape}
 
 
-def kernel_times(blocks, order, launches):
-    """The rANS 4x16 kernels at the shapes the main path gave them:
-    hold each against its plain version once more, time both (and
-    torch.gather beside sf_fetch) and compute the roofline bound from
-    this run's inputs.  Returns the entries of the ``kernels`` line and
-    the whole-encode times of the two variants."""
-    B, N = blocks.shape
-    res = batch._pmap(native.build_tables_o1_dense if order
-                      else native.build_tables_o0, list(blocks))
+def device_tables(blocks, order):
+    """The 4x16 tables that the device-table route builds for a batch:
+    (alpha (B,A) uint8, packed (B, A*A or A) int32, shift (B,) int32
+    tensors, A)."""
+    bt = torch.from_numpy(blocks).to(DEV)
     if order:
-        alpha, packed, A = rans_v2.densify_builds((r[1], r[2]) for r in res)
-        sv = np.array([r[3] for r in res], np.int32)
+        alpha, packed, _fh, meta, _H, A = tables_v2.build_o1_device_async(
+            bt, device=DEV)
+        shift = meta[:, 1].to(torch.int32).contiguous()
     else:
-        alpha, packed, A = rans_v2.densify_group_o0(
-            np.stack([r[2] for r in res]), np.stack([r[1] for r in res]))
-        sv = np.full(B, 12, np.int32)
-    tables = convert.tables_from_reference(alpha, packed, sv, DEV)
+        alpha, packed, _asz, _fh, A = tables_v2.build_o0_device(bt, device=DEV)
+        shift = torch.full((len(blocks),), 12, dtype=torch.int32, device=DEV)
+    return alpha, packed.reshape(len(blocks), -1).contiguous(), shift, A
+
+
+def enc16_work(B, N, A, A2, nwords):
+    """(bytes, operations) of the 4x16 encode of B blocks of N bytes:
+    the blocks, alphabets, packed rows and shifts in, the states, counts
+    and words out; per symbol the step (32, the divide counted as 20, as
+    in every rANS encoder's count) and the lookup (the byte -> index
+    table, the context, the entry: 6), per block the 256-entry byte ->
+    index table."""
+    nbytes = B * N + B * A + B * A2 * 4 + B * 4 + 2 * nwords + B * (16 + 4)
+    return nbytes, 38 * B * N + 256 * B
+
+
+def dec16_work(B, N, A, table_bytes, nwords):
+    """(bytes, operations) of the 4x16 decode: the words, rows, alphabets,
+    states and shifts in, the bytes out; per symbol the step and a
+    bisection of the context's row."""
+    nbytes = 2 * nwords + table_bytes + B * A + B * (16 + 4 + 4) + B * N
+    return nbytes, (12 + 3 * math.ceil(math.log2(A + 1))) * B * N
+
+
+def kernel_times(blocks, order, launches):
+    """The 4x16 encoder and the decoder's base-row entry at the shapes the
+    main path gave them (the device-table route's tables, per-block
+    shifts): hold each against its plain version once more, time both
+    and compute the roofline bound from this run's inputs."""
+    B, N = blocks.shape
+    alpha, packed, shift, A = device_tables(blocks, order)
     bt = torch.from_numpy(blocks).to(DEV)
     shape = f"B={B} N={N} A={A} order={order}"
     plain = {}
 
-    # ---- the two encode variants whole, tensor preparation included,
-    # in turns: pfv, vmem, vmem, pfv
-    variant_ms = {"pfv": [], "vmem": []}
-    for v in ("pfv", "vmem", "vmem", "pfv"):
-        variant_ms[v].append(cuda_ms(
-            lambda: rans_vmem.enc_batch(bt, tables, order,
-                                        prefetch=v == "pfv"), reps=3))
-
-    # ---- rans16_enc_fused ----
-    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
-    nq = B * 4 * K
-    fus = rans_vmem.rans16_enc_fused(sym, ctx, tables, K, geom, order)
-    ms_fus = cuda_ms(lambda: rans_vmem.rans16_enc_fused(
-        sym, ctx, tables, K, geom, order))
-    pl_fus = once(lambda: plain.update(fus=rans_vmem._rans16_enc_fused_plain(
-        sym, ctx, tables, K, geom, order)))
-    err_fus = streams_err(fus, plain.pop("fus"))
-    del sym, ctx
-
-    # ---- sf_fetch ----
-    tbl, qidx, K, geom = rans_vmem.enc_queries(bt, tables, order)
-    sf = rans_vmem.sf_fetch(tbl, qidx)
-    err_fetch = max_abs_diff(sf, rans_vmem._sf_fetch_plain(tbl, qidx))
-    ms_fetch = cuda_ms(lambda: rans_vmem.sf_fetch(tbl, qidx))
-    pl_fetch = cuda_ms(lambda: rans_vmem._sf_fetch_plain(tbl, qidx))
-    idx64 = qidx.to(torch.int64)
-    ms_gather = cuda_ms(lambda: torch.gather(tbl, 1, idx64))
-    del idx64
-    fetch_bytes = 8 * nq + tbl.numel() * 4
-    fetch_ops = 3 * nq
-
-    # ---- rans16_enc ----
-    enc = rans_vmem.rans16_enc(sf, tables.shift, K, geom, order)
-    ms_enc = cuda_ms(lambda: rans_vmem.rans16_enc(
-        sf, tables.shift, K, geom, order))
-    pl_enc = once(lambda: plain.update(enc=rans_vmem._rans16_enc_plain(
-        sf, tables.shift, K, geom, order)))
-    err_enc = streams_err(enc, plain.pop("enc"))
-    err_fus = max(err_fus, streams_err(fus, enc))
-    del fus
+    enc = rans_vmem.rans16_enc_packed(bt, alpha, packed, shift, order)
+    ms_enc = cuda_ms(lambda: rans_vmem.rans16_enc_packed(
+        bt, alpha, packed, shift, order))
+    pl_enc = once(lambda: plain.update(enc=rans_vmem._rans16_enc_packed_plain(
+        bt, alpha, packed, shift, order)))
+    err_enc = streams_err_suffix(enc, plain.pop("enc"))
     st, wd, cn = enc
     nwords = int(cn.sum())
-    enc_bytes = 4 * nq + 2 * nwords + B * (4 + 16 + 4)
-    enc_ops = 32 * nq                  # ~20 of them the 32-bit divide
-    # the fused encoder reads a symbol and (order 1) a context byte per
-    # symbol and the base rows; 4 more operations for the lookup
-    fus_bytes = ((2 if order else 1) * nq + tables.bases.numel() * 2
-                 + 2 * nwords + B * (4 + 16 + 4))
-    fus_ops = 36 * nq
+    words = convert.words_forward(wd, cn).contiguous()
+    del enc, wd
 
-    # ---- rans16_dec ----
-    del sf, qidx, enc
-    W = max(int(cn.max()), 1)
-    words = wd[:, :W].contiguous()
-    del wd
+    tables = convert.tables_from_packed(alpha, packed.view(
+        (B, A, A) if order else (B, A)), shift)
     out = rans_vmem.rans16_dec(st, words, cn, tables, N, order)
     ms_dec = cuda_ms(lambda: rans_vmem.rans16_dec(
         st, words, cn, tables, N, order))
     pl_dec = once(lambda: plain.update(dec=rans_vmem._rans16_dec_plain(
         st, words, cn, tables, N, order)))
     err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
-    dec_bytes = (2 * nwords + tables.bases.numel() * 2 + B * A
-                 + B * (16 + 4 + 4) + B * N)
-    dec_ops = (12 + 3 * math.ceil(math.log2(A + 1))) * nq
 
-    ref = "htscodecs_tpu/ops/rans_vmem.py"
-    variants = {k: statistics.median(v) for k, v in variant_ms.items()}
+    A2 = packed.shape[1]
+    enc_b, enc_o = enc16_work(B, N, A, A2, nwords)
+    dec_b, dec_o = dec16_work(B, N, A, tables.bases.numel() * 2, nwords)
     return [
-        entry("rans16_dec", "rans16_dec.cu", f"{ref}:344", shape,
-              launches["rans4x16"], ms_dec, pl_dec, err_dec, dec_bytes,
-              dec_ops, None),
-        entry("sf_fetch", "sf_fetch.cu", f"{ref}:529", shape,
-              launches["rans4x16"], ms_fetch, pl_fetch, err_fetch,
-              fetch_bytes, fetch_ops, ms_gather),
-        entry("rans16_enc", "rans16_enc.cu", f"{ref}:831", shape,
-              launches["rans4x16"], ms_enc, pl_enc, err_enc, enc_bytes,
-              enc_ops, None),
-        entry("rans16_enc_fused", "rans16_enc_fused.cu", f"{ref}:855", shape,
-              launches["vmem"], ms_fus, pl_fus, err_fus, fus_bytes, fus_ops,
+        entry("rans16_dec", "rans16_dec.cu",
+              "htscodecs_tpu/ops/rans_vmem.py:344", shape,
+              launches["rans4x16"], ms_dec, pl_dec, err_dec, dec_b, dec_o,
               None),
-    ], variants
+        entry("rans16_enc_packed", "rans16_enc_packed.cu",
+              "htscodecs_tpu/ops/rans_pallas.py:485 (and "
+              "htscodecs_tpu/ops/rans_vmem.py:529, :831, :855)", shape,
+              launches["rans4x16"], ms_enc, pl_enc, err_enc, enc_b, enc_o,
+              None),
+    ]
 
 
 def kernel_times8(blocks, order, launches):
@@ -1074,105 +1015,78 @@ def kernel_times8(blocks, order, launches):
     ]
 
 
-def packed_second_launch(blocks, group, alpha_d, packed_d):
-    """Both packed-row kernels on another shift group of the order-1
-    rans_pallas path (the second launch of each per batch): the shape and
-    the ms of each, each output checked."""
+def pallas_group(blocks, group, alpha_d, packed_d):
+    """One shift group of the order-1 rans_pallas path: (blocks tensor,
+    alpha, packed rows (B, A*A), shift, A)."""
     sel, sv = group
     selt = torch.from_numpy(sel).to(DEV)
     bt = torch.from_numpy(blocks[sel]).to(DEV)
     al = alpha_d[selt].contiguous()
-    B, N = bt.shape
     A = al.shape[1]
-    pk = packed_d[selt].contiguous().view(B, A * A)
-    st, wd, cn = rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)
-    ms_enc = cuda_ms(lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1))
-    words = wd[:, :max(int(cn.max()), 1)].contiguous()
-    if not torch.equal(rans_pallas.rans16_dec_packed(st, words, pk, al, sv,
-                                                     N, 1), bt):
-        fail(f"rans16_dec_packed did not return the shift-{sv} group")
-    ms_dec = cuda_ms(lambda: rans_pallas.rans16_dec_packed(
-        st, words, pk, al, sv, N, 1))
-    shape = f"B={B} N={N} A={A} order=1 shift={sv}"
-    return shape, {"rans16_enc_packed": ms_enc, "rans16_dec_packed": ms_dec}
+    pk = packed_d[selt].contiguous().view(len(sel), A * A)
+    return bt, al, pk, sv, A
 
 
-def kernel_times_packed(blocks, groups, launches):
-    """The two packed-row kernels at the shape the rans_pallas path gave
-    them (its largest order-1 shift group, tables from the device
-    build): each held against its plain version once more and timed,
-    and the three 4x16 encodes timed whole on the same blocks and
-    tables in turns (pfv, vmem, packed, packed, vmem, pfv; raw bytes
-    in, streams out); then both on the second shift group, the batch's
-    other launch.  Returns the ``kernels`` entries and the whole-encode
-    times."""
+def kernel_times_packed(blocks, groups, launches, entries):
+    """The 4x16 kernels at the shapes the rans_pallas path gave them: the
+    decoder's packed-row entry at its largest order-1 shift group
+    (tables from the device build) held against its plain version and
+    timed, a new ``kernels`` entry; the encoder at the same group (one
+    shift) timed beside its main-path entry in ``entries``; both on the
+    second shift group, the batch's other launch."""
     shifts, alpha_d, packed_d = groups
-    sel, sv = shifts[0]
-    selt = torch.from_numpy(sel).to(DEV)
-    bt = torch.from_numpy(blocks[sel]).to(DEV)
-    al = alpha_d[selt].contiguous()
-    pk3 = packed_d[selt].contiguous()
+    bt, al, pk, sv, A = pallas_group(blocks, shifts[0], alpha_d, packed_d)
     B, N = bt.shape
-    A = al.shape[1]
-    pk = pk3.view(B, A * A)
     shape = f"B={B} N={N} A={A} order=1 shift={sv}"
     plain = {}
-    nq = B * 4 * (N // 4 + N % 4)
 
-    tables = convert.tables_from_packed(al, pk3, sv)
-    whole = {"pfv": [], "vmem": [], "packed": []}
-    runs = {"pfv": lambda: rans_vmem.enc_batch(bt, tables, 1, prefetch=True),
-            "vmem": lambda: rans_vmem.enc_batch(bt, tables, 1, prefetch=False),
-            "packed": lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)}
-    for v in ("pfv", "vmem", "packed", "packed", "vmem", "pfv"):
-        whole[v].append(cuda_ms(runs[v], reps=3))
-    whole = {k: statistics.median(v) for k, v in whole.items()}
-    whole["shape"] = shape
-
-    enc = rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1)
-    ms_enc = cuda_ms(lambda: rans_pallas.rans16_enc_packed(bt, al, pk, sv, 1))
-    pl_enc = once(lambda: plain.update(enc=rans_pallas._rans16_enc_packed_plain(
-        bt, al, pk, sv, 1)))
-    err_enc = streams_err(enc, plain.pop("enc"))
+    enc = rans_vmem.rans16_enc_packed(bt, al, pk, sv, 1)
+    ms_enc = cuda_ms(lambda: rans_vmem.rans16_enc_packed(bt, al, pk, sv, 1))
+    svt = torch.full((B,), sv, dtype=torch.int32, device=DEV)
+    pl_enc = once(lambda: plain.update(enc=rans_vmem._rans16_enc_packed_plain(
+        bt, al, pk, svt, 1)))
+    err_enc = streams_err_suffix(enc, plain.pop("enc"))
     st, wd, cn = enc
     nwords = int(cn.sum())
-    words = wd[:, :max(int(cn.max()), 1)].contiguous()
+    words = convert.words_forward(wd, cn).contiguous()
     del enc, wd
-    out = rans_pallas.rans16_dec_packed(st, words, pk, al, sv, N, 1)
-    ms_dec = cuda_ms(lambda: rans_pallas.rans16_dec_packed(
+    out = rans_vmem.rans16_dec_packed(st, words, pk, al, sv, N, 1)
+    ms_dec = cuda_ms(lambda: rans_vmem.rans16_dec_packed(
         st, words, pk, al, sv, N, 1))
-    pl_dec = once(lambda: plain.update(dec=rans_pallas._rans16_dec_packed_plain(
-        st, words, pk, al, sv, N, 1)))
+    pl_dec = once(lambda: plain.update(dec=rans_vmem._rans16_dec_packed_plain(
+        st, words, pk, al, svt, N, 1)))
     err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
-
-    # bytes: every input once, every output once.  Encode: the block
-    # bytes, alphabet and packed rows in, states, counts and words out;
-    # per symbol the 4x16 step (32, the divide counted as 20) and the
-    # lookup (two table loads, a multiply-add, a bound test: 6), per
-    # block the 256-entry byte table (a compare and an add per alphabet
-    # entry).  Decode: the words, rows, alphabet and states in, the bytes
-    # out; per symbol the step and a bisection of the row, as for
-    # rans16_dec (the kernel's linear scan is its own cost, not the
-    # function's).
-    tab = B * A * A * 4 + B * A
-    enc_bytes = B * N + tab + 2 * nwords + B * (16 + 4)
-    dec_bytes = 2 * nwords + tab + B * 16 + B * N
-    ref = "htscodecs_tpu/ops/rans_pallas.py"
-    entries = [
-        entry("rans16_dec_packed", "rans16_dec_packed.cu", f"{ref}:265",
-              shape, launches, ms_dec, pl_dec, err_dec, dec_bytes,
-              (12 + 3 * math.ceil(math.log2(A + 1))) * nq, None),
-        entry("rans16_enc_packed", "rans16_enc_packed.cu", f"{ref}:485",
-              shape, launches, ms_enc, pl_enc, err_enc, enc_bytes,
-              38 * nq + 2 * 256 * A * B, None),
-    ]
+    enc_b, enc_o = enc16_work(B, N, A, A * A, nwords)
+    dec_b, dec_o = dec16_work(B, N, A, B * A * A * 4, nwords)
+    e_dec = entry("rans16_dec_packed", "rans16_dec.cu",
+                  "htscodecs_tpu/ops/rans_pallas.py:265", shape, launches,
+                  ms_dec, pl_dec, err_dec, dec_b, dec_o, None)
+    e_enc = next(e for e in entries if e["name"] == "rans16_enc_packed")
+    if err_enc:
+        fail(f"rans16_enc_packed != plain at the rans_pallas group ({err_enc})")
+    t_b = enc_b / HBM_BYTES_PER_S * 1e3
+    t_o = enc_o / FP32_OPS_PER_S * 1e3
+    e_enc["rans_pallas"] = {"shape": shape,
+                            "launches": launches["rans16_enc_packed"],
+                            "ms": ms_enc,
+                            "plain_ms": pl_enc, "max_abs_err": err_enc,
+                            "bound_ms": max(t_b, t_o),
+                            "bound_by": "bytes" if t_b >= t_o else "operations"}
     del words, st, out
     for group in shifts[1:2]:
-        shape2, ms2 = packed_second_launch(blocks, group, alpha_d, packed_d)
-        for e in entries:
-            e["second_shape"] = shape2
-            e["second_ms"] = ms2[e["name"]]
-    return entries, whole
+        bt, al, pk, sv, A = pallas_group(blocks, group, alpha_d, packed_d)
+        st, wd, cn = rans_vmem.rans16_enc_packed(bt, al, pk, sv, 1)
+        ms2 = cuda_ms(lambda: rans_vmem.rans16_enc_packed(bt, al, pk, sv, 1))
+        words = convert.words_forward(wd, cn).contiguous()
+        if not torch.equal(rans_vmem.rans16_dec_packed(
+                st, words, pk, al, sv, N, 1), bt):
+            fail(f"rans16_dec_packed did not return the shift-{sv} group")
+        shape2 = f"B={bt.shape[0]} N={N} A={A} order=1 shift={sv}"
+        e_enc["rans_pallas"].update(second_shape=shape2, second_ms=ms2)
+        e_dec["second_shape"] = shape2
+        e_dec["second_ms"] = cuda_ms(lambda: rans_vmem.rans16_dec_packed(
+            st, words, pk, al, sv, N, 1))
+    return [e_dec]
 
 
 PLAIN_CUT = 8192     # byte (event) indices the range-coder plain versions run
@@ -1351,22 +1265,42 @@ def rans8_inputs(blocks, order):
     return st, by[:, :max(int(cn.max()), 1)].contiguous(), cn, tables
 
 
-def rans8_dec_sweep(batches):
-    """rans8_dec ms at the main paths' shapes by threads per CTA (32, 64,
-    128: what ``rans8_vmem.DEC_THREADS`` is chosen from) and, at the
-    default CTA, through the wide-table route (tables read from global
-    memory)."""
-    sweep = {"chosen threads": rans8_vmem.DEC_THREADS}
+def dec_sweep(batches):
+    """The 4x16 decoder's base-row entry (on the encoder's streams and
+    the device-table route's tables) and rans8_dec, at the main paths'
+    shapes, by threads per CTA (32, 64, 128: what ``DEC_THREADS`` of
+    ops/rans_vmem.py and ops/rans8_vmem.py is chosen from; with whether
+    the tables go to shared memory) and, at the default CTA, through the
+    global-table route: ms."""
+    sweep = {"rans16_dec chosen threads": rans_vmem.DEC_THREADS,
+             "rans8_dec chosen threads": rans8_vmem.DEC_THREADS}
     for name, blocks, order in batches:
-        N = blocks.shape[1]
+        B, N = blocks.shape
+        alpha, packed, shift, A = device_tables(blocks, order)
+        bt = torch.from_numpy(blocks).to(DEV)
+        st, wd, cn = rans_vmem.rans16_enc_packed(bt, alpha, packed, shift,
+                                                 order)
+        words = convert.words_forward(wd, cn).contiguous()
+        del wd
+        tables = convert.tables_from_packed(alpha, packed.view(
+            (B, A, A) if order else (B, A)), shift)
+        for t in (32, 64, 128):
+            sweep[f"rans16_dec {name} A={A} threads{t}"] = [
+                rans_vmem.dec_tables_in_smem(t, A, order),
+                cuda_ms(lambda: rans_vmem.rans16_dec(
+                    st, words, cn, tables, N, order, threads=t), reps=3)]
+        sweep[f"rans16_dec {name} A={A} global tables"] = cuda_ms(
+            lambda: rans_vmem.rans16_dec(st, words, cn, tables, N, order,
+                                         global_tables=True), reps=3)
+        del st, words, cn, tables, bt
         st, stream, cn, tables = rans8_inputs(blocks, order)
         A = tables.alpha.shape[1]
         for t in (32, 64, 128):
-            sweep[f"{name} A={A} threads{t}"] = [
+            sweep[f"rans8_dec {name} A={A} threads{t}"] = [
                 rans8_vmem.tables_in_smem(t, A, order),
                 cuda_ms(lambda: rans8_vmem.rans8_dec(
                     st, stream, cn, tables, N, order, threads=t), reps=3)]
-        sweep[f"{name} A={A} global tables"] = cuda_ms(
+        sweep[f"rans8_dec {name} A={A} global tables"] = cuda_ms(
             lambda: rans8_vmem.rans8_dec(st, stream, cn, tables, N, order,
                                          global_tables=True), reps=3)
         del st, stream, cn, tables
@@ -1411,7 +1345,8 @@ def kernel_times_rc(jobs, launches):
 def load_parent(path):
     """The port's package of another checkout (the parent commit's,
     unpacked with ``git archive``), imported as ``parent_port`` with its
-    own kernel library: (its arith_vmem, its rc_vmem, its rans8_vmem)."""
+    own kernel library: (its arith_vmem, its rc_vmem, its rans8_vmem,
+    its rans_vmem, its rans_pallas, its convert)."""
     import importlib
     import importlib.util
     root = Path(path).resolve() / "htscodecs_tpu_torch"
@@ -1423,9 +1358,9 @@ def load_parent(path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module("parent_port.ops.arith_vmem"),
-            importlib.import_module("parent_port.ops.rc_vmem"),
-            importlib.import_module("parent_port.ops.rans8_vmem"))
+    return tuple(importlib.import_module(f"parent_port.ops.{m}") for m in (
+        "arith_vmem", "rc_vmem", "rans8_vmem", "rans_vmem", "rans_pallas",
+        "convert"))
 
 
 def in_turns(runs, reps=5):
@@ -1437,11 +1372,72 @@ def in_turns(runs, reps=5):
     return {k: statistics.median(v) for k, v in ts.items()}
 
 
+def ab_4x16(par, name, blocks, order, res) -> None:
+    """The 4x16 encoder and both decoder entries of this checkout against
+    the parent's 4x16 encoders (its whole ``rans_vmem.enc_batch``, where
+    it has one, and its ``rans16_enc_packed``) and decoders
+    (``rans16_dec``, ``rans16_dec_packed``) on the largest shift group of
+    the device-table route's tables for ``blocks``: outputs equal, times
+    in turns."""
+    par_vmem, par_pallas, par_convert = par
+    alpha, packed, shift, A = device_tables(blocks, order)
+    sh = shift.cpu().numpy()
+    vals, cnts = np.unique(sh, return_counts=True)
+    sv = int(vals[cnts.argmax()])
+    selt = torch.from_numpy(np.flatnonzero(sh == sv)).to(DEV)
+    bt = torch.from_numpy(blocks).to(DEV)[selt].contiguous()
+    al, pk = alpha[selt].contiguous(), packed[selt].contiguous()
+    B, N = bt.shape
+    svt = torch.full((B,), sv, dtype=torch.int32, device=DEV)
+    pk3 = pk.view((B, A, A) if order else (B, A))
+    tables = convert.tables_from_packed(al, pk3, svt)
+    par_tables = par_convert.tables_from_packed(al, pk3, svt)
+    tag = f"{name} B={B} A={A} shift={sv}"
+    st, wd, cn = rans_vmem.rans16_enc_packed(bt, al, pk, svt, order)
+    words = convert.words_forward(wd, cn).contiguous()
+    enc_runs = {"packed": lambda: par_pallas.rans16_enc_packed(bt, al, pk, sv,
+                                                               order)}
+    if hasattr(par_vmem, "enc_batch"):
+        enc_runs["pfv"] = lambda: par_vmem.enc_batch(bt, par_tables, order)
+    for k, fn in enc_runs.items():
+        # the parent's words start each row (before this PR) or end it
+        pst, pwd, pcn = fn()
+        W = words.shape[1]
+        left = pwd.shape[1] >= W and same_live(pwd[:, :W], words, cn)
+        right = pwd.shape == wd.shape and same_suffix(pwd, wd, cn)
+        ok = torch.equal(pst, st) and torch.equal(pcn, cn) and (left or right)
+        if not ok:
+            fail(f"--ab: the parent's 4x16 encoder ({k}) and the change's "
+                 f"differ on {tag}")
+        res[f"rans16_enc_packed vs parent {k} {tag}"] = in_turns({
+            "parent": fn,
+            "change": lambda: rans_vmem.rans16_enc_packed(bt, al, pk, svt,
+                                                          order)})
+    dec_runs = {
+        "rans16_dec": (lambda: par_vmem.rans16_dec(st, words, cn, par_tables,
+                                                   N, order),
+                       lambda: rans_vmem.rans16_dec(st, words, cn, tables, N,
+                                                    order)),
+        "rans16_dec_packed": (
+            lambda: par_pallas.rans16_dec_packed(st, words, pk, al, sv, N,
+                                                 order),
+            lambda: rans_vmem.rans16_dec_packed(st, words, pk, al, sv, N,
+                                                order))}
+    for k, (pfn, cfn) in dec_runs.items():
+        if not (torch.equal(pfn(), bt) and torch.equal(cfn(), bt)):
+            fail(f"--ab: {k} of the parent or of the change did not decode "
+                 f"{tag}")
+        res[f"{k} {tag}"] = in_turns({"parent": pfn, "change": cfn})
+    log(f"A/B 4x16 {tag}: " + "; ".join(
+        f"{k} {v}" for k, v in res.items() if tag in k))
+
+
 def ab_run(parent: str, B: int) -> None:
-    """arith_enc, arith_dec, rans8_dec and rc_enc of this checkout against
-    those of the checkout at ``parent``, on the main paths' inputs, in
-    one process on one card: outputs must be equal, times in turns."""
-    par_arith, par_rc, par_r8 = load_parent(parent)
+    """arith_enc, arith_dec, rans8_dec, rc_enc and the 4x16 encoder and
+    decoder of this checkout against those of the checkout at
+    ``parent``, on the main paths' inputs, in one process on one card:
+    outputs must be equal, times in turns."""
+    par_arith, par_rc, par_r8, *par_4x16 = load_parent(parent)
     N = 65536
     q4 = testdata.synth_quality(B, N, seed=42)
     wide = testdata.synth_wide(max(B // 4, 1), N, 40, seed=9)
@@ -1483,6 +1479,7 @@ def ab_run(parent: str, B: int) -> None:
                 fail(f"--ab: rans8_dec of the {k} did not decode {name}")
         res[f"rans8_dec {name}"] = in_turns(runs)
         del st, s8, cn8, tables, want
+        ab_4x16(par_4x16, name, blocks, order, res)
         log(f"A/B {name} B={Bb}: " + "; ".join(
             f"{k} {res[f'{k} {name}']}"
             for k in ("arith_enc", "arith_dec", "rans8_dec")))
@@ -1509,10 +1506,10 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="a thin slice of the kernel comparison grid")
     ap.add_argument("--ab", metavar="DIR",
-                    help="only time arith_enc, arith_dec, rans8_dec and "
-                         "rc_enc against those of the checkout at DIR (e.g. "
-                         "the parent commit unpacked with git archive), in "
-                         "turns")
+                    help="only time arith_enc, arith_dec, rans8_dec, rc_enc "
+                         "and the 4x16 encoder and decoder against those of "
+                         "the checkout at DIR (e.g. the parent commit "
+                         "unpacked with git archive), in turns")
     args = ap.parse_args()
 
     kind = torch.cuda.get_device_name(0)
@@ -1552,11 +1549,6 @@ def main() -> None:
     ncases = phase_kernels_rc(args.quick)
     log(f"range-coder kernels == plain versions (tolerance 0) on {ncases} "
         f"cases in {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    ncases = phase_kernels_packed(args.quick)
-    log(f"packed-row kernels == plain versions and == rans16_enc / "
-        f"rans16_dec (tolerance 0) on {ncases} cases in "
-        f"{time.perf_counter() - t:.1f} s")
     print(json.dumps({"kernels_vs_plain": [
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
@@ -1576,10 +1568,12 @@ def main() -> None:
         "on the host")
     _l, streams0 = run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
     run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
+    # both table routes of the synth4 batches, each launching the one
+    # encoder alone, give the main path's streams
     routes_s = {f"order{o}": run_table_routes(q4, o, st, f"synth4 order {o}")
                 for o, st in ((1, streams1), (0, streams0))}
     routes_s["shape"] = f"B={B} N={N}"
-    del streams0
+    del streams0, streams1
     route_sweep = table_route_sweep(q4)
 
     # the first-generation engine on device-built tables
@@ -1590,19 +1584,6 @@ def main() -> None:
     launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
     run_main_path(R4X8, "synth4 order 0", q4, 0, 16)
     run_main_path(R4X8, "wide41 order 1", wide, 1, 16)
-
-    # the 4x16 encode with the table lookup inside the kernel
-    if rans_v2.get_enc_variant()["row_fetch"] != "pfv":
-        fail("the default encode variant is not 'pfv'")
-    rans_v2.set_enc_variant(row_fetch="vmem")
-    launches["vmem"], streams_v = run_main_path(
-        R4X16_VMEM, "synth4 order 1", q4, 1, 16)
-    rans_v2.set_enc_variant(row_fetch="pfv")
-    if streams_v != streams1:
-        fail("row_fetch='vmem' streams differ from the default variant's")
-    log(f"row_fetch='vmem': all {len(streams_v)} streams byte-identical to "
-        "the default variant's")
-    del streams1, streams_v
 
     # arith_dynamic: the adaptive range coder, both orders
     launches["arith"], _ = run_main_path(ARITH, "synth4 order 1", q4, 1, 256)
@@ -1622,8 +1603,8 @@ def main() -> None:
     profile_main_path(ARITH, q4, 1)
     profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
                  "device")
-    entries, variants = kernel_times(q4, 1, launches)
-    packed_entries, whole = kernel_times_packed(q4, groups, launches["packed"])
+    entries = kernel_times(q4, 1, launches)
+    entries += kernel_times_packed(q4, groups, launches["packed"], entries)
     del groups
     build_ms = table_build_ms(q4)
     entries += kernel_times8(q4, 1, launches)
@@ -1632,22 +1613,19 @@ def main() -> None:
               ("wide41 order 1", wide, 1)]
     dec_rep = arith_dec_report(shapes)
     sweep = arith_launch_sweep(shapes)
-    sweep8 = rans8_dec_sweep(shapes)
+    dsweep = dec_sweep(shapes)
     del wide, q4, shapes
     entries += kernel_times_rc(jobs, launches["fqz"])
     del jobs
-    entries += packed_entries
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
             f"{e['library_ms']}, plain version {e['plain_ms']:.1f} ms"
             f"{' at ' + e['plain_shape'] if 'plain_shape' in e else ''})"
             + (f"; second launch {e['second_ms']:.3f} ms at "
-               f"{e['second_shape']}" if "second_ms" in e else ""))
-    log(f"4x16 encode whole (densify + inputs + kernels), ms: {variants}")
-    print(json.dumps({"enc_variant_ms": variants}), flush=True)
-    log(f"4x16 encode whole on the rans_pallas group, in turns, ms: {whole}")
-    print(json.dumps({"enc_whole_ms": whole}), flush=True)
+               f"{e['second_shape']}" if "second_ms" in e else "")
+            + (f"; rans_pallas path {e['rans_pallas']}" if "rans_pallas" in e
+               else ""))
     log(f"rANS 4x16 compress wall by table route, s: {routes_s}")
     print(json.dumps({"table_route_compress_s": routes_s}), flush=True)
     log(f"rANS 4x16 compress wall by table route and group size B, "
@@ -1659,9 +1637,9 @@ def main() -> None:
     log(f"arith enc ms by blocks per warp, dec [pool, ms] by threads per "
         f"CTA and pool: {sweep}")
     print(json.dumps({"arith_launch_sweep_ms": sweep}), flush=True)
-    log(f"rans8_dec [tables in shared memory, ms] by threads per CTA: "
-        f"{sweep8}")
-    print(json.dumps({"rans8_dec_sweep_ms": sweep8}), flush=True)
+    log(f"rans16_dec and rans8_dec [tables in shared memory, ms] by threads "
+        f"per CTA: {dsweep}")
+    print(json.dumps({"dec_sweep_ms": dsweep}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

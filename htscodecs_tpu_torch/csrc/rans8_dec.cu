@@ -77,45 +77,6 @@ extern __shared__ __align__(16) uint8_t s8mem[];
 
 namespace {
 
-// A block's stream staged in the ring `buf`: stream byte pos sits at
-// buf[(skew + pos) % SB], skew = the row's address % 16; segment k is
-// the 16 bytes at the aligned address base + 16 k.  Bytes past the
-// block's count are not copied (zero-filled) and read as 0.
-struct Stage {
-    uint8_t* buf;
-    const uint8_t* base;
-    int skew, nb, nseg, next;
-
-    // ask for the segments below `upto` not yet asked for
-    __device__ __forceinline__ void fill(int upto)
-    {
-        upto = min(upto, nseg);
-        for (; next < upto; ++next) {
-            const int a = next * 16;
-            cp_async16(buf + (a & (SB - 1)), base + a,
-                       (uint32_t)min(skew + nb - a, 16));
-        }
-    }
-
-    // the 12 ring bytes from the aligned word at or before stream byte p
-    __device__ __forceinline__ void window(int p, uint32_t w[3], int& w0) const
-    {
-        w0 = (skew + p) & ~3;
-#pragma unroll
-        for (int t = 0; t < 3; ++t)
-            w[t] = *reinterpret_cast<const uint32_t*>(buf + ((w0 + 4 * t) & (SB - 1)));
-    }
-
-    // stream byte pos, within 8 of the window's p
-    __device__ __forceinline__ uint32_t at(int pos, const uint32_t w[3],
-                                          int w0) const
-    {
-        const int o = skew + pos - w0;
-        const uint32_t v = o < 4 ? w[0] : (o < 8 ? w[1] : w[2]);
-        return pos < nb ? (v >> (8 * (o & 3))) & 0xFFu : 0u;
-    }
-};
-
 // v, hidden from the compiler, so that it keeps v in a register: left to
 // itself it rereads the thread and CTA indices (special-register reads,
 // tens of cycles) inside the step loop
@@ -236,7 +197,7 @@ rans8_dec_kernel(const uint32_t* __restrict__ states,
     const int idx = idx_at + gl * nrows * IDX_N;
 
     const uint8_t* by = stream + bb * (size_t)W;
-    Stage sg;
+    Stage<SB> sg;
     sg.buf = s8mem + g * SB;
     sg.base = reinterpret_cast<const uint8_t*>((uintptr_t)by & ~(uintptr_t)15);
     sg.skew = (int)((uintptr_t)by & 15u);

@@ -7,7 +7,7 @@
 // table row and entry with select chains, places each 32-step
 // segment's bytes with one-hot adds into a fixed capacity (with an
 // overflow retry) and leaves the cross-segment placement to a sort.
-// Here, as in rans16_enc_fused:
+// Here:
 //
 //   - one 4-thread group per rANS block, thread j = processing lane j
 //     (rANS state 3 - j); the (start, freq) pair is an indexed load

@@ -1,7 +1,7 @@
-// What the rANS kernels of this directory share: the thread layout
-// (one 4-thread group per rANS block, 128 threads = 32 blocks per CUDA
-// block), the in-kernel table lookup, the rANS 4x16 encode step and the
-// final reversal of a block's emitted elements.
+// What the rANS encoders of this directory share: the thread layout
+// (one 4-thread group per rANS block; rans8_enc runs 128 threads = 32
+// blocks per CUDA block), which lanes code a symbol at a step, the 4x8
+// encoder's table lookup and the final reversal of its emitted bytes.
 
 #pragma once
 
@@ -22,9 +22,8 @@ __device__ __forceinline__ bool enc_active(int s, int j, int geom)
 
 // Base of entry (ctx, sym) of a block's monotone base rows
 // ((Ac, A+1) int16) and of its successor; freq = next - start.  The
-// flat index ctx * A + sym is clamped into the table, as sf_fetch
-// clamps its index, so a byte outside the block's alphabet cannot read
-// outside the block's rows.
+// flat index ctx * A + sym is clamped into the table, so a byte outside
+// the block's alphabet cannot read outside the block's rows.
 __device__ __forceinline__ void table_entry(const int16_t* __restrict__ tb,
                                             int A, int Ac, int sym, int ctx,
                                             int& start, int& next)
@@ -38,46 +37,6 @@ __device__ __forceinline__ void table_entry(const int16_t* __restrict__ tb,
     const int16_t* e = tb + c * (A + 1) + s;
     start = e[0];
     next = e[1];
-}
-
-// One rANS 4x16 encode step of a group (rANS_word.h, L = 1 << 15):
-//   emit = X >= ((L >> shift) << 16) * f;  word = X & 0xFFFF;
-//   X >>= 16 if emit;  X = (X / f << shift) + X % f + start
-// in uint32 arithmetic (a freq of 0 divides by 1).  The word's rank in
-// the block's emission sequence is the running count n plus the
-// popcount of the lower lanes' ballot bits; gsh is the group's first
-// bit in the warp's ballot.  Every thread of the warp must call this
-// (the ballot is warp-wide).
-__device__ __forceinline__ void enc16_put(uint32_t& X, int& n,
-                                          uint16_t* __restrict__ w,
-                                          uint32_t start, uint32_t f,
-                                          bool ok, bool live, int j,
-                                          unsigned gsh, uint32_t xmult,
-                                          int sh)
-{
-    const bool emit = ok && X >= xmult * f;
-    const unsigned g = (__ballot_sync(0xffffffffu, emit) >> gsh) & 0xFu;
-    if (emit) {
-        if (live) w[n + __popc(g & ((1u << j) - 1u))] = (uint16_t)X;
-        X >>= 16;
-    }
-    n += __popc(g);
-    if (ok) {
-        const uint32_t fs = f ? f : 1u;
-        const uint32_t qq = X / fs;
-        X = (qq << sh) + (X - qq * fs) + start;
-    }
-}
-
-// The same step from v = start | freq << 12 (what sf_fetch gathers).
-__device__ __forceinline__ void enc16_step(uint32_t& X, int& n,
-                                           uint16_t* __restrict__ w,
-                                           uint32_t v, bool ok, bool live,
-                                           int j, unsigned gsh,
-                                           uint32_t xmult, int sh)
-{
-    enc16_put(X, n, w, v & 0xFFFu, (v >> 12) & 0x1FFFu, ok, live, j, gsh,
-              xmult, sh);
 }
 
 // Forward order = reverse of emission order: the warp reverses, in

@@ -95,14 +95,11 @@ def _build() -> Path:
 
 def _declare(lib) -> None:
     lib.rans16_dec_launch.restype = _int
-    lib.rans16_dec_launch.argtypes = [_vp] * 7 + [_int] * 5 + [_vp]
-    lib.sf_fetch_launch.restype = _int
-    lib.sf_fetch_launch.argtypes = [_vp, _vp, _vp, _int, _int,
-                                    ctypes.c_longlong, _vp]
-    lib.rans16_enc_launch.restype = _int
-    lib.rans16_enc_launch.argtypes = [_vp] * 5 + [_int] * 5 + [_vp]
-    lib.rans16_enc_fused_launch.restype = _int
-    lib.rans16_enc_fused_launch.argtypes = [_vp] * 7 + [_int] * 6 + [_vp]
+    lib.rans16_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
+    lib.rans16_dec_packed_launch.restype = _int
+    lib.rans16_dec_packed_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
+    lib.rans16_enc_packed_launch.restype = _int
+    lib.rans16_enc_packed_launch.argtypes = [_vp] * 7 + [_int] * 6 + [_vp]
     lib.rans8_enc_launch.restype = _int
     lib.rans8_enc_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
     lib.rans8_dec_launch.restype = _int
@@ -113,10 +110,6 @@ def _declare(lib) -> None:
     lib.arith_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
     lib.rc_enc_launch.restype = _int
     lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
-    lib.rans16_dec_packed_launch.restype = _int
-    lib.rans16_dec_packed_launch.argtypes = [_vp] * 5 + [_int] * 6 + [_vp]
-    lib.rans16_enc_packed_launch.restype = _int
-    lib.rans16_enc_packed_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
 
 
 def get_lib():

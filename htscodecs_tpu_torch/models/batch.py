@@ -4,8 +4,9 @@ order 0 and 1; the fqzcomp_qual encode).
 Counterpart of ``htscodecs_tpu/models/batch.py`` for the plain orders.
 Compresses/decompresses many independent CRAM blocks at once: the
 entropy payload work of a large enough group of equal-length blocks
-goes to the batched CUDA engine (ops/rans_vmem.py through the batch
-entries of ops/rans_v2.py; dense alphabets A <= 96), everything else to
+goes to the batched CUDA engine (ops/rans_vmem.py: its one encoder reads
+the packed rows on both table routes, its decoder the base rows; dense
+alphabets A <= 96), everything else to
 the native host coder.  Streams are byte-identical to
 ``rans4x16.compress`` / the C reference in every path.
 
@@ -156,15 +157,14 @@ def _frame(order_byte: int, n: int, body: bytes, data: np.ndarray) -> bytes:
 
 
 def _join_bodies(hdrs, states, words, counts) -> list[bytes]:
-    """header + four state flushes + the block's words, per block."""
+    """header + four state flushes + the block's words, per block; the
+    words as ``convert.streams_to_host`` gives them (each block's stream
+    at the end of its row)."""
     st = states.astype("<u4", copy=False)
     wd = words.astype("<u2", copy=False)
-    return [hdrs[b] + st[b].tobytes() + wd[b, :counts[b]].tobytes()
+    W = wd.shape[1]
+    return [hdrs[b] + st[b].tobytes() + wd[b, W - counts[b]:].tobytes()
             for b in range(len(hdrs))]
-
-
-def _enc_prefetch() -> bool:
-    return rans_v2.get_enc_variant()["row_fetch"] == "pfv"
 
 
 def _bodies_o0_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
@@ -180,9 +180,8 @@ def _bodies_o0_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
     hdrs = native.serialize_o0_batch(fhdr)
     if hdrs is None:
         return None
-    tables = convert.tables_from_packed(alpha_d, packed_d, 12)
-    enc = rans_vmem.enc_batch(jb, tables, 0, prefetch=_enc_prefetch())
-    return _join_bodies(hdrs, *convert.streams_to_reference(*enc))
+    enc = rans_vmem.rans16_enc_packed(jb, alpha_d, packed_d, 12, 0)
+    return _join_bodies(hdrs, *convert.streams_to_host(*enc))
 
 
 def _mark(dev):
@@ -231,8 +230,8 @@ def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
         return None
     alpha_d, packed_d, fhdr_d, meta_d, H_d, _A = r
     built = _mark(dev)
-    tables = convert.tables_from_packed(alpha_d, packed_d, meta_d[:, 1])
-    enc = rans_vmem.enc_batch(jb, tables, 1, prefetch=_enc_prefetch())
+    enc = rans_vmem.rans16_enc_packed(
+        jb, alpha_d, packed_d.reshape(len(batch), -1), meta_d[:, 1], 1)
     host, done = _copy_after(built, (meta_d, fhdr_d, alpha_d))
     if done is not None:
         done.synchronize()
@@ -242,7 +241,7 @@ def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
     if hdrs is None:
         return None
     flag = tables_v2.resolve_band_flags(meta, H_d)
-    bodies = _join_bodies(hdrs, *convert.streams_to_reference(*enc))
+    bodies = _join_bodies(hdrs, *convert.streams_to_host(*enc))
     for b in np.flatnonzero(flag):
         bodies[b] = rans4x16._compress_o1(batch[b])
     return bodies
@@ -271,9 +270,8 @@ def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
         # wide alphabet: the native scalar coder takes it
         return _pmap(rans4x16._compress_o0, list(batch))
     alpha, packed, _ = dense
-    states, words, counts = rans_v2.enc_o0_batch(batch, alpha, packed,
-                                                 device=dev)
-    return _join_bodies(hdrs, states, words, counts)
+    enc = rans_v2._enc_tensors(batch, alpha, packed, 12, 0, dev)
+    return _join_bodies(hdrs, *convert.streams_to_host(*enc))
 
 
 def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
@@ -295,9 +293,8 @@ def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
     # mixed 10/12-bit batches need no grouping: the shift is per block
     shifts = np.array([r[3] for r in res], np.int32)
     alpha, packed, _ = rans_v2.densify_builds((r[1], r[2]) for r in res)
-    states, words, counts = rans_v2.enc_o1_batch(batch, alpha, packed,
-                                                 shifts, device=dev)
-    return _join_bodies(hdrs, states, words, counts)
+    enc = rans_v2._enc_tensors(batch, alpha, packed, shifts, 1, dev)
+    return _join_bodies(hdrs, *convert.streams_to_host(*enc))
 
 
 # ---------------------------------------------------------------------

@@ -148,16 +148,47 @@ def streams_from_reference(states, words, device, counts=None):
     return _tensor(st, device), _tensor(wd, device), _tensor(cn, device)
 
 
-def streams_to_reference(states: torch.Tensor, words: torch.Tensor,
-                         counts: torch.Tensor):
-    """The port's encode outputs -> (states (B,4) u32, words (B,cap')
-    u16, counts (B,) i32) numpy arrays.  Only the columns some block
-    uses are copied off the device (cap' = max count, at least 1)."""
+def streams_to_host(states: torch.Tensor, words: torch.Tensor,
+                    counts: torch.Tensor):
+    """The 4x16 encoder's outputs (each block's stream in forward order
+    at the END of its row, ``rans_vmem.rans16_enc_packed``) -> numpy
+    (states (B,4) u32, words (B,W') u16, counts (B,) i32), the words
+    still at the end of each row: block b's stream is
+    ``words[b, W' - counts[b]:]``.  Only the last W' = max count (at
+    least 1) columns are copied off the device."""
     cn = counts.cpu().numpy().astype(np.int32)
-    cap = max(int(cn.max()) if len(cn) else 0, 1)
-    wd = words[:, :cap].contiguous().cpu().numpy().view(np.uint16)
+    W = max(int(cn.max()) if len(cn) else 0, 1)
+    wd = words[:, words.shape[1] - W:].contiguous().cpu().numpy()
+    wd = wd.view(np.uint16)
     st = states.contiguous().cpu().numpy().view(np.uint32)
     return st, wd, cn
+
+
+def streams_to_reference(states: torch.Tensor, words: torch.Tensor,
+                         counts: torch.Tensor):
+    """The 4x16 encoder's outputs -> the reference's (states (B,4) u32,
+    words (B,W') u16, counts (B,) i32), each block's stream at the START
+    of its row: ``words[b, :counts[b]]``, zeros past it."""
+    st, wd, cn = streams_to_host(states, words, counts)
+    W = wd.shape[1]
+    out = np.zeros_like(wd)
+    for b, n in enumerate(cn):
+        out[b, :n] = wd[b, W - n:]
+    return st, out, cn
+
+
+def words_forward(words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The 4x16 encoder's words (each block's stream at the end of its
+    row) -> (B, W') int16 on the same device with each stream at the
+    start of its row and zeros past it, W' = max count (at least 1):
+    what the decoders read."""
+    B, cap = words.shape
+    W = max(int(counts.max()) if B else 0, 1)
+    i = torch.arange(W, device=words.device)[None, :]
+    n = counts.to(torch.int64)[:, None]
+    src = (cap - n + i).clamp(max=cap - 1)
+    return torch.where(i < n, words.gather(1, src),
+                       torch.zeros((), dtype=words.dtype, device=words.device))
 
 
 # ---------------------------------------------------------------------------

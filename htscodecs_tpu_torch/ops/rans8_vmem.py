@@ -29,8 +29,9 @@ base[sym]`` holds as in the 4x16 tables.
     per block) spread a batch over all SMs.
 ``rans8_enc``  csrc/rans8_enc.cu
     replaces ``_build_enc_kernel`` / ``_enc_vmem8`` and its stitch
-    sort.  Looks (start, freq) up in the block's base rows itself, as
-    ``rans16_enc_fused`` does.  Bound by memory traffic (2 bytes per
+    sort.  Looks (start, freq) up in the block's base rows itself from
+    the dense symbols and contexts in processing order
+    (``rans_vmem.enc_inputs``).  Bound by memory traffic (2 bytes per
     symbol in, the emitted bytes out).
 
 Each wrapper uses its plain PyTorch version only for tensors on the
@@ -45,9 +46,14 @@ import torch
 from .. import cuda_build
 from . import rans_v2, rans_vmem
 from .convert import Tables
-from .rans_vmem import (LAUNCHES, _M32, _enc_active, _require,
-                        _require_enc_inputs, _reverse_emitted, _slot_lookup,
-                        _stream, _table_entries, _to_i32_bits)
+# the 4x8 decoder keeps its tables and indexes its rows as the 4x16
+# decoder does (the same shared-memory rule and slot index of 64-slot
+# steps), with its own ring of STAGE bytes per block
+from .rans_vmem import (IDX_N, LAUNCHES, TABLES_SMEM_MAX, _M32,  # noqa: F401
+                        _enc_active, _require, _require_enc_inputs,
+                        _reverse_emitted, _slot_lookup, _stream,
+                        _table_entries, _to_i32_bits, slot_index,
+                        slot_lookup_indexed)
 
 RANS8_L = 1 << 23
 SHIFT = 12
@@ -82,67 +88,20 @@ def _dec_geometry(N: int, order: int):
 
 DEC_THREADS = 32     # threads per rans8_dec CTA (8 blocks)
 STAGE = 256          # staged stream bytes per block (csrc/rans8_dec.cu: SB)
-IDX_N = 65           # slot index entries per row (csrc/rans8_dec.cu: IDX_N)
-# shared memory of one rans8_dec CTA up to which its tables go there:
-# two such CTAs fit an H100 SM
-TABLES_SMEM_MAX = 96 * 1024
-
-
-def _part(nbytes: int) -> int:
-    return -(-nbytes // 16) * 16
 
 
 def _dec_smem(bpc: int, A: int, order: int, tables: bool) -> int:
     """Shared memory of one ``rans8_dec`` CTA of ``bpc`` blocks
-    (csrc/rans8_dec.cu: rans8_dec_smem): the stream rings, then with
-    ``tables`` the base rows, the alphabets and the slot index, each part
-    rounded up to 16 bytes."""
-    s = bpc * STAGE
-    if tables:
-        nrows = A if order == 1 else 1
-        s += (_part(bpc * nrows * (A + 1) * 2) + _part(bpc * A)
-              + _part(bpc * nrows * IDX_N))
-    return s
+    (csrc/rans8_dec.cu: rans8_dec_smem; ``rans_vmem._dec_smem`` with
+    this decoder's ring)."""
+    return rans_vmem._dec_smem(bpc, A, order, tables, STAGE)
 
 
 def tables_in_smem(threads: int, A: int, order: int) -> bool:
-    """Whether a ``rans8_dec`` launch of ``threads`` per CTA copies its
-    tables into shared memory: when the CTA's shared memory stays within
-    ``TABLES_SMEM_MAX`` (and A < 256, so that the index's counts fit a
-    byte).  Wider tables are read from global memory."""
-    return A < 256 and _dec_smem(threads // 4, A, order, True) <= TABLES_SMEM_MAX
-
-
-def slot_index(bases: torch.Tensor) -> torch.Tensor:
-    """The kernel's slot index of monotone base rows (..., A+1) int:
-    (..., IDX_N) int64, entry j = the number of the first A bases that
-    are <= 64 j."""
-    A = bases.shape[-1] - 1
-    x = torch.arange(IDX_N, device=bases.device) * 64
-    return (bases[..., :A, None].to(torch.int64) <= x).sum(dim=-2)
-
-
-def slot_lookup_indexed(bases: torch.Tensor, index: torch.Tensor,
-                        m: torch.Tensor):
-    """``rans_vmem._slot_lookup`` through the slot index, as the kernel
-    bisects: rows (..., A+1), index (..., IDX_N), slots m (...) ->
-    (sym, base, freq), each (...) int64.  The count of bases <= m lies
-    between the index entries m // 64 and m // 64 + 1."""
-    j = (m >> 6).to(torch.int64)
-    lo = index.gather(-1, j[..., None])[..., 0]
-    hi = index.gather(-1, j[..., None] + 1)[..., 0]
-    rows = bases.to(torch.int64)
-    while bool((lo < hi).any()):
-        open_ = lo < hi
-        mid = (lo + hi) >> 1
-        le = rows.gather(-1, mid.clamp(max=rows.shape[-1] - 1)[..., None])[..., 0] <= m
-        lo = torch.where(open_ & le, mid + 1, lo)
-        hi = torch.where(open_ & ~le, mid, hi)
-    sym = (lo - 1).clamp(min=0)
-    bs = torch.where(lo > 0, rows.gather(-1, sym[..., None])[..., 0],
-                     torch.zeros_like(lo))
-    f = rows.gather(-1, (sym + 1)[..., None])[..., 0] - bs
-    return sym, bs, f
+    """Whether a ``rans8_dec`` launch copies its tables into shared
+    memory (``rans_vmem.dec_tables_in_smem``'s rule with this decoder's
+    ring)."""
+    return rans_vmem.dec_tables_in_smem(threads, A, order, STAGE)
 
 
 def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int,
@@ -257,8 +216,10 @@ def _rans8_dec_plain(states, stream, counts, tables: Tables, N: int,
 def rans8_enc(sym, ctx, tables: Tables, K: int, geom: int, order: int):
     """Encode B blocks.
 
-    sym, ctx (B, 4K) uint8 as for ``rans_vmem.rans16_enc_fused`` (same
-    lookup and clamp); tables with per-row totals in the successor
+    sym, ctx (B, 4K) uint8: dense symbol and context per symbol in
+    processing order (step-major, processing lane minor;
+    ``rans_vmem.enc_inputs`` makes them); the entry read is
+    ``ctx * A + sym`` clamped into the block's table; tables with per-row totals in the successor
     column (``convert.tables8_from_reference``); ``tables.shift`` is
     not read: the precision is 12 bits.  Returns (states (B,4) int32 in
     state order, bytes (B, 8K) uint8 in forward order, counts (B,)

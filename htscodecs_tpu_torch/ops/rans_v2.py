@@ -15,13 +15,12 @@ Counterpart of ``htscodecs_tpu/ops/rans_v2.py``.  What is carried over:
   enc_o0_batch`` with the same numpy argument and return contract,
   plus a per-block shift vector and an explicit ``device``.
 
-The JAX package's scan engines, decode variant tables and autotune
-plumbing are not carried over: here the batch entries always run the
-CUDA engine in ``ops/rans_vmem.py`` (its plain PyTorch versions when
-``device`` is the CPU).  Of the encode variants two remain, under the
-JAX package's names (``set_enc_variant`` / ``get_enc_variant``):
-``row_fetch="pfv"`` (default) gathers the table entries first and
-encodes from them, ``"vmem"`` looks them up inside the encode kernel.
+The JAX package's scan engines, encode and decode variant tables and
+autotune plumbing are not carried over: here the batch entries always
+run the CUDA engine in ``ops/rans_vmem.py``, its one encoder
+(``rans16_enc_packed``, from the packed rows) and its decoder
+(``rans16_dec``, from the base rows of ``convert.Tables``), or their
+plain PyTorch versions when ``device`` is the CPU.
 
 State-transition maths is bit-identical to ``rANS_word.h`` (L = 1<<15,
 16-bit renormalisation), so streams match the C reference byte for
@@ -45,23 +44,6 @@ SEG_CAP2 = 64        # sort-compaction (kept for the shared contract;
 # i32 packing of (base, freq): both <= 4096 (12-bit tables)
 PACK_SHIFT = 13
 PACK_MASK = (1 << PACK_SHIFT) - 1
-
-
-# Encode variant read by enc_o*_batch: "pfv" = sf_fetch + rans16_enc,
-# "vmem" = rans16_enc_fused.  Same streams either way.
-ENC_ROW_FETCH = ("pfv", "vmem")
-_ENC_VARIANT = {"row_fetch": "pfv"}
-
-
-def set_enc_variant(row_fetch=None):
-    if row_fetch is not None:
-        if row_fetch not in ENC_ROW_FETCH:
-            raise ValueError(f"row_fetch must be one of {ENC_ROW_FETCH}")
-        _ENC_VARIANT["row_fetch"] = row_fetch
-
-
-def get_enc_variant():
-    return dict(_ENC_VARIANT)
 
 
 def _round_a(a: int) -> int:
@@ -328,15 +310,25 @@ def dec_o0_batch(states, words, out_sz: int, alpha, packed, shift=12,
                       device, counts)
 
 
-def _enc_batch(blocks, alpha, packed, shift, order: int, device):
+def _enc_tensors(blocks, alpha, packed, shift, order: int, dev):
+    """The encoder's outputs as tensors on ``dev``: (states, words, counts)
+    of ``rans_vmem.rans16_enc_packed`` (each block's stream the last
+    counts[b] words of its row)."""
     from . import convert, rans_vmem
+    bt = convert.as_tensor(np.ascontiguousarray(blocks, dtype=np.uint8),
+                           torch.uint8, dev)
+    B = bt.shape[0]
+    al = convert.as_tensor(alpha, torch.uint8, dev)
+    pk = convert.as_tensor(packed, torch.int32, dev).reshape(B, -1)
+    sv = convert.as_tensor(convert.shift_vector(shift, B), torch.int32, dev)
+    return rans_vmem.rans16_enc_packed(bt, al, pk, sv, order)
+
+
+def _enc_batch(blocks, alpha, packed, shift, order: int, device):
+    from . import convert
     dev = check_device(device)
-    blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
-    tables = convert.tables_from_reference(alpha, packed, shift, dev)
-    st, wd, cnt = rans_vmem.enc_batch(
-        convert._tensor(blocks, dev), tables, order,
-        prefetch=_ENC_VARIANT["row_fetch"] == "pfv")
-    return convert.streams_to_reference(st, wd, cnt)
+    return convert.streams_to_reference(
+        *_enc_tensors(blocks, alpha, packed, shift, order, dev))
 
 
 def enc_o1_batch(blocks: np.ndarray, alpha, packed, shift, device="cuda"):

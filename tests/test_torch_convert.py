@@ -81,11 +81,18 @@ def test_streams_round_trip_keeps_high_bits():
     assert st.dtype == torch.int32 and wd.dtype == torch.int16
     assert cn.dtype == torch.int32
     assert int(st[0, 0]) < 0 and int(wd[0, 0]) < 0     # the bits, reinterpreted
-    s2, w2, c2 = convert.streams_to_reference(st, wd, cn)
+    # the encoder's layout: each block's words at the end of its row
+    enc = torch.zeros_like(wd)
+    for b, n in enumerate(counts):
+        enc[b, W - n:] = wd[b, :n]
+    s2, w2, c2 = convert.streams_to_reference(st, enc, cn)
     assert s2.dtype == np.uint32 and w2.dtype == np.uint16
     np.testing.assert_array_equal(s2, states)
     np.testing.assert_array_equal(c2, counts)
-    np.testing.assert_array_equal(w2, words[:, :counts.max()])
+    live = np.arange(counts.max())[None, :] < counts[:, None]
+    np.testing.assert_array_equal(w2, np.where(live, words[:, :counts.max()], 0))
+    np.testing.assert_array_equal(convert.words_forward(enc, cn).numpy(),
+                                  w2.view(np.int16))
 
 
 def test_streams_default_counts_cover_the_row():

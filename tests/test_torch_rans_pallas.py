@@ -47,7 +47,9 @@ def _port_dec(order):
 
 def test_dec_o1_matches_pallas_kernel_lane3_tail():
     """JAX rans_pallas.dec_o1_batch (Pallas, interpret mode) at N = 253:
-    the lane-3 tail steps."""
+    the lane-3 tail steps; then arbitrary states through rows with no
+    valid entry, where the packed route's answer (freq 0) is the JAX
+    kernel's."""
     blocks, alpha, packed = _setup(3, 253, 6, 12, 1, seed=5)
     st, w, n = ref_v2.enc_o1_batch(blocks, alpha, packed, 12)
     words = w[:, :int(n.max())]
@@ -55,6 +57,14 @@ def test_dec_o1_matches_pallas_kernel_lane3_tail():
     got = rans_pallas.dec_o1_batch(st, words, 253, alpha, packed, 12,
                                    device="cpu")
     np.testing.assert_array_equal(want, blocks)
+    np.testing.assert_array_equal(got, want)
+    emptied = packed.copy()
+    emptied[:, 1] = 0
+    g = np.random.default_rng(6).integers(0, 2**32, st.shape, dtype=np.uint64)
+    g = g.astype(np.uint32)
+    want = ref_pallas.dec_o1_batch(g, words, 253, alpha, emptied, 12)
+    got = rans_pallas.dec_o1_batch(g, words, 253, alpha, emptied, 12,
+                                   device="cpu")
     np.testing.assert_array_equal(got, want)
 
 
@@ -193,20 +203,20 @@ def test_device_built_tables_feed_the_engine(order):
 # the wrappers
 
 def test_plain_versions_agree_with_the_rans_v2_kernels_plain_versions():
-    """On the same tensors: rans16_enc_packed == sf_fetch + rans16_enc
-    and rans16_dec_packed == rans16_dec (the bar the chip run holds the
-    CUDA kernels to)."""
+    """On the same tensors: rans16_dec_packed (the decoder's packed-row
+    reader) == rans16_dec (its base-row reader, what rans_v2 runs) on
+    the encoder's streams (the bar the chip run holds the CUDA kernels
+    to), and the encoder gives rans_v2's entry the same streams."""
     blocks, alpha, packed = _setup(7, 514, 40, 10, 1)
     bt, al = torch.from_numpy(blocks), torch.from_numpy(alpha)
     pk = torch.from_numpy(packed.reshape(7, -1))
     before = dict(rans_vmem.LAUNCHES)
     st, wd, cn = rans_pallas.rans16_enc_packed(bt, al, pk, 10, 1)
+    _assert_streams_equal(convert.streams_to_reference(st, wd, cn),
+                          rans_v2.enc_o1_batch(blocks, alpha, packed, 10,
+                                               device="cpu"))
     tables = convert.tables_from_packed(al, torch.from_numpy(packed), 10)
-    st2, wd2, cn2 = rans_vmem.enc_batch(bt, tables, 1)
-    assert torch.equal(st, st2) and torch.equal(cn, cn2)
-    live = torch.arange(wd.shape[1])[None, :] < cn[:, None]
-    assert torch.equal(torch.where(live, wd, 0), torch.where(live, wd2, 0))
-    words = wd[:, :int(cn.max())].contiguous()
+    words = convert.words_forward(wd, cn)
     out = rans_pallas.rans16_dec_packed(st, words, pk, al, 10, 514, 1)
     assert torch.equal(out, bt)
     assert torch.equal(out, rans_vmem.rans16_dec(st, words, cn, tables, 514, 1))

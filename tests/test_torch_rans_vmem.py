@@ -1,7 +1,10 @@
 """htscodecs_tpu_torch.ops.rans_vmem (plain versions, device="cpu")
 against the JAX package's engines on the same numpy inputs: the XLA
 engines of rans_v2 on the CPU and, for one case per direction, the
-Pallas kernels in interpret mode.  Integer codecs: exact equality."""
+Pallas kernels in interpret mode; and the arithmetic of the CUDA kernels
+in plain form (the decoder's slot index, both table readers' answer for
+a row with no valid entry, the encoder's divide-free quotient).
+Integer codecs: exact equality."""
 
 import numpy as np
 import pytest
@@ -11,7 +14,8 @@ import jax.numpy as jnp
 
 from htscodecs_tpu.ops import rans_v2 as ref
 from htscodecs_tpu.ops import rans_vmem as ref_vmem
-from htscodecs_tpu_torch.ops import convert
+from htscodecs_tpu_torch.ops import convert, rans_v2
+from htscodecs_tpu_torch.ops import rans_pallas as port_pallas
 from htscodecs_tpu_torch.ops import rans_v2 as port
 from htscodecs_tpu_torch.ops import rans_vmem as port_vmem
 from htscodecs_tpu_torch.utils import testdata
@@ -113,74 +117,112 @@ def test_order0_matches_xla_engine(B, N, a, mode):
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("mode", SHIFTS)
 @pytest.mark.parametrize("B,N,a", SHAPES)
-def test_fused_encode_matches_xla_engine_and_prefetch_variant(B, N, a, mode,
-                                                              order):
-    """The encode with the table lookup inside (row_fetch="vmem") vs
-    _enc_scan_v2_pb and vs the port's default variant ("pfv"), through
-    the batch entries."""
+def test_one_encoder_matches_xla_engine(B, N, a, mode, order):
+    """The batch entries on the one encoder (rans16_enc_packed, per-block
+    shift) vs _enc_scan_v2_pb."""
     blocks, alpha, packed, sv = _setup(B, N, a, mode, order)
     enc = port.enc_o1_batch if order else port.enc_o0_batch
-    assert port.get_enc_variant() == {"row_fetch": "pfv"}
-    pfv = enc(blocks, alpha, packed, sv, device="cpu")
-    port.set_enc_variant(row_fetch="vmem")
-    try:
-        fused = enc(blocks, alpha, packed, sv, device="cpu")
-    finally:
-        port.set_enc_variant(row_fetch="pfv")
-    _assert_streams_equal(fused, _ref_encode(blocks, alpha, packed, sv, order))
-    _assert_streams_equal(fused, pfv)
+    got = enc(blocks, alpha, packed, sv, device="cpu")
+    _assert_streams_equal(got, _ref_encode(blocks, alpha, packed, sv, order))
 
 
-def test_fused_plain_equals_fetch_then_encode_on_holes_and_clamped_symbols():
-    """Bit for bit the sf_fetch + rans16_enc pair, also where no valid
-    encoder goes: freq-0 holes and symbols outside the alphabet."""
-    B, N = 7, 131
-    blocks, alpha, packed, sv = _setup(B, N, 6, "mixed", 1)
+@pytest.mark.parametrize("order", [0, 1])
+def test_per_block_shift_equals_one_shift_per_group(order):
+    """rans16_enc_packed's plain version with a mixed shift vector gives,
+    block for block, what one call per shift group gives (the rans_pallas
+    entry, one int shift) and what the JAX rans_v2 engine gives on each
+    group; its words sit at the end of each row."""
+    B, N = 9, 514
+    blocks, alpha, packed, sv = _setup(B, N, 14, "mixed", order)
+    assert len(set(sv.tolist())) == 2
+    bt, al = torch.from_numpy(blocks), torch.from_numpy(alpha)
+    pk = torch.from_numpy(packed.reshape(B, -1))
+    st, wd, cn = port_vmem.rans16_enc_packed(bt, al, pk, torch.from_numpy(sv),
+                                             order)
+    fwd = convert.words_forward(wd, cn)
+    for shift in (10, 12):
+        sel = np.flatnonzero(sv == shift)
+        ref_enc = ref.enc_o1_batch if order else ref.enc_o0_batch
+        want = ref_enc(blocks[sel], alpha[sel], packed[sel], shift)
+        enc = port_pallas.enc_o1_batch if order else port_pallas.enc_o0_batch
+        _assert_streams_equal(enc(blocks[sel], alpha[sel], packed[sel], shift,
+                                  device="cpu"), want)
+        _assert_streams_equal((st[sel].numpy().view(np.uint32),
+                               fwd[sel].numpy().view(np.uint16),
+                               cn[sel].numpy()), want)
+        cap = wd.shape[1]
+        for k, b in enumerate(sel):
+            n = int(cn[b])
+            np.testing.assert_array_equal(
+                wd[b, cap - n:].numpy().view(np.uint16), want[1][k, :n])
+
+
+@pytest.mark.parametrize("shift", [10, 12])
+def test_decoder_slot_index_matches_slot_lookup(shift):
+    """The 4x16 decoder's shared-memory slot index (entry j = bases <=
+    j << (shift - 6): 65 entries at either precision) and the bisection
+    through it give _slot_lookup's (symbol, base, freq) for every slot,
+    holes and empty rows included."""
+    blocks, alpha, packed, sv = _setup(7, 600, 12, str(shift), 1)
     t = convert.tables_from_reference(alpha, packed, sv, "cpu")
-    A = alpha.shape[1]
-    rng = np.random.default_rng(3)
-    K = 40
-    sym = torch.from_numpy(rng.integers(0, A + 3, (B, 4 * K)).astype(np.uint8))
-    ctx = torch.from_numpy(rng.integers(0, A + 3, (B, 4 * K)).astype(np.uint8))
-    for order, tab in ((1, t), (0, convert.Tables(t.alpha,
-                                                  t.bases[:, 1:2].contiguous(),
-                                                  t.shift))):
-        for geom in (0, 3):
-            qidx = sym.to(torch.int32)
-            if order:
-                qidx = qidx + ctx.to(torch.int32) * A
-            sf = port_vmem.sf_fetch(port_vmem.sf_table(tab), qidx)
-            want = port_vmem.rans16_enc(sf, tab.shift, K, geom, order)
-            got = port_vmem.rans16_enc_fused(sym, ctx, tab, K, geom, order)
-            for g, w in zip(got, want):
-                assert torch.equal(g, w)
+    bases = t.bases.to(torch.int64)                     # (B, A, A+1)
+    B, A = alpha.shape
+    ss = (t.shift.to(torch.int64) - 6).clamp(min=0)
+    idx = port_vmem.slot_index(bases, ss[:, None])
+    assert idx.shape == (B, A, port_vmem.IDX_N)
+    assert int(idx.max()) <= A
+    m = torch.arange(1 << shift).repeat(B * A, 1).view(B, A, -1)
+    got = port_vmem.slot_lookup_indexed(
+        bases[:, :, None, :].expand(B, A, 1 << shift, A + 1),
+        idx[:, :, None, :].expand(B, A, 1 << shift, port_vmem.IDX_N), m,
+        ss[:, None, None])
+    rows = bases.reshape(B * A, 1, A + 1).expand(B * A, 1 << shift, A + 1)
+    want = port_vmem._slot_lookup(rows, m.reshape(B * A, -1))
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(B * A, -1), w)
 
 
-def test_enc_variant_names():
-    assert port.ENC_ROW_FETCH == ("pfv", "vmem")
-    with pytest.raises(ValueError):
-        port.set_enc_variant(row_fetch="onehot")
-    port.set_enc_variant()                  # no argument: no change
-    assert port.get_enc_variant() == {"row_fetch": "pfv"}
+@pytest.mark.parametrize("packed_route", [False, True])
+def test_readers_answer_for_a_row_with_no_valid_entry(packed_route):
+    """A context row with no entry at or below the slot (an unused
+    context: every entry a hole) resolves to symbol 0 and base 0 with
+    freq 0 on the packed route and freq = row[1] = 1 << shift on the
+    base-row route; a used row resolves the same way on both."""
+    shift = 12
+    pk = torch.zeros((1, 2, 4), dtype=torch.int32)
+    f = torch.tensor([1000, 0, 3096, 0], dtype=torch.int32)
+    base = torch.cumsum(f, 0) - f
+    pk[0, 1] = (base << 13) | f
+    rows = rans_v2._b16_fill(pk, shift).to(torch.int16).to(torch.int64)
+    m = torch.tensor([[0, 999, 1000, 4095]])
+    sym, bs, fr = port_vmem._slot_lookup(rows[:, 0][:, None, :].expand(1, 4, 5),
+                                         m, packed_route)
+    assert sym.tolist() == [[0] * 4] and bs.tolist() == [[0] * 4]
+    assert fr.tolist() == [[0 if packed_route else 1 << shift] * 4]
+    sym, bs, fr = port_vmem._slot_lookup(rows[:, 1][:, None, :].expand(1, 4, 5),
+                                         m, packed_route)
+    assert sym.tolist() == [[0, 0, 2, 2]]
+    assert bs.tolist() == [[0, 0, 1000, 1000]]
+    assert fr.tolist() == [[1000, 1000, 3096, 3096]]
 
 
-def test_sf_fetch_matches_pallas_interpret():
-    """(c) the plain fetch vs the Pallas lane-gather kernel."""
-    rng = np.random.default_rng(12)
-    B, KQ, Cn = 32, 2048, 2
-    tbl = rng.integers(0, 2**25, size=(B, Cn * 128)).astype(np.int32)
-    idx = rng.integers(0, Cn * 128, size=(B, KQ)).astype(np.int32)
-    want = np.asarray(ref_vmem._sf_fetch(jnp.asarray(tbl), jnp.asarray(idx),
-                                         Cn, interpret=True))
-    got = port_vmem.sf_fetch(torch.from_numpy(tbl), torch.from_numpy(idx))
-    np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_sf_fetch_clamps_out_of_row_indices():
-    tbl = torch.arange(12, dtype=torch.int32).reshape(2, 6)
-    idx = torch.tensor([[-3, 0, 5, 6, 99], [1, 2, 3, 4, 5]], dtype=torch.int32)
-    got = port_vmem.sf_fetch(tbl, idx)
-    assert got.tolist() == [[0, 0, 5, 5, 5], [7, 8, 9, 10, 11]]
+@pytest.mark.parametrize("lo,hi", [(1, 64), (65, 1024), (1025, 2048),
+                                   (2049, 4096)])
+def test_divide_free_quotient_is_exact(lo, hi):
+    """rans16_enc_packed's quotient (csrc/rc_core.cuh rc_udiv: the high
+    word of n * floor((2^32 - 1) / f) and one correction) equals n // f
+    for every freq f in [lo, hi] over a sample of 32-bit n that holds
+    the extremes and the multiples of f around them."""
+    f = np.arange(lo, hi + 1, dtype=np.uint64)[:, None]
+    rng = np.random.default_rng(lo)
+    n = rng.integers(0, 2**32, (len(f), 64), dtype=np.uint64)
+    edges = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1],
+                     np.uint64)
+    mult = np.minimum((np.uint64(2**32 - 1) // f) * f, np.uint64(2**32 - 1))
+    n = np.concatenate([n, np.broadcast_to(edges, (len(f), 6)), mult,
+                        mult - np.uint64(1), f - np.uint64(1), f], axis=1)
+    got = port_vmem._udiv_plain(n, f)
+    np.testing.assert_array_equal(got, n // f)
 
 
 def test_decode_matches_pallas_interpret():
@@ -193,6 +235,15 @@ def test_decode_matches_pallas_interpret():
                             counts=n)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, blocks)
+    # arbitrary states through rows with no valid entry: the base-row
+    # route's answer there (freq = row[1]) is the JAX kernel's
+    emptied = packed.copy()
+    emptied[:, 1] = 0
+    g = np.random.default_rng(5).integers(0, 2**32, xf.shape, dtype=np.uint64)
+    g = g.astype(np.uint32)
+    want = ref_vmem.dec_o1_batch(g, w, N, alpha, emptied, sv, interpret=True)
+    got = port.dec_o1_batch(g, w, N, alpha, emptied, sv, device="cpu")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_encode_matches_pallas_interpret():
@@ -252,19 +303,18 @@ def test_wrappers_validate_their_arguments():
     with pytest.raises(ValueError):
         port_vmem.rans16_dec(st, wd, cn, t, 16, 1)      # order-0 tables
     with pytest.raises(ValueError):
-        port_vmem.sf_fetch(torch.zeros((2, 4), dtype=torch.int64),
-                           torch.zeros((2, 4), dtype=torch.int32))
+        port_vmem.rans16_dec(st, wd, cn, t, 16, 0, threads=96)
+    blocks = torch.zeros((2, 16), dtype=torch.uint8)
+    al = torch.zeros((2, 4), dtype=torch.uint8)
+    pk = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        port_vmem.rans16_enc(torch.zeros((2, 7), dtype=torch.int32),
-                             t.shift, 2, 0, 0)
-    sym = torch.zeros((2, 8), dtype=torch.uint8)
+        port_vmem.rans16_enc_packed(blocks, al, pk, 0, 0)             # shift
     with pytest.raises(ValueError):
-        port_vmem.rans16_enc_fused(sym.to(torch.int32), sym, t, 2, 0, 0)
+        port_vmem.rans16_enc_packed(blocks, al, pk,
+                                    torch.full((3,), 12), 0)          # B
     with pytest.raises(ValueError):
-        port_vmem.rans16_enc_fused(sym, sym, t, 3, 0, 0)     # 4K != 8
+        port_vmem.rans16_enc_packed(blocks, al, pk, 12, 1)            # A*A
     with pytest.raises(ValueError):
-        port_vmem.rans16_enc_fused(sym, sym, t, 2, 0, 1)     # order-0 tables
+        port_vmem.rans16_enc_packed(blocks.to(torch.int32), al, pk, 12, 0)
     with pytest.raises(ValueError):
-        port_vmem.rans16_enc_fused(
-            sym, torch.zeros((2, 8), dtype=torch.uint8, device="meta"),
-            t, 2, 0, 0)
+        port_vmem.rans16_dec_packed(st, wd, pk, al, 12, 16, 0, threads=16)
