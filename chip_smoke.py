@@ -18,7 +18,10 @@ What it does, in order (any failure exits non-zero):
    empty rows included) and truncated and garbage streams; the 4x16
    decoder's entries and rans8_dec at 32, 64 and 128 threads per CTA
    and through their global-table routes, rans8_dec also on 4x8
-   alphabets of 128 to 256 symbols; the range-coder kernels run over
+   alphabets of 128 to 256 symbols (rans8_enc on those up to 255, its
+   order-1 global-table route), rans8_enc also on bytes past the
+   block's alphabet and on one-symbol rows of 4095 and 4096 slots; the
+   range-coder kernels run over
    model widths 2..256,
    ragged lengths, a normalising input, truncated and garbage streams,
    deferred-byte runs (one of 5000 bytes; 64 that end at every address
@@ -49,7 +52,13 @@ What it does, in order (any failure exits non-zero):
    one ``enc_o*_batch`` / ``dec_o*_batch`` call per shift group, equal
    to ``rans_v2``'s encode block for block, one launch of the encoder,
    or of the decoder's packed entry, per call and none of any other) at
-   both orders; then ``batch.r4x8_compress_blocks`` /
+   both orders; the transform-flagged orders 9 (STRIPE, 4 lanes, order-1
+   and order-0 candidates: the lanes form device groups, and both 4x16
+   kernels must launch) and 193 (PACK|RLE|order 1: most entropy jobs
+   take the host coder) through ``compress_blocks`` /
+   ``uncompress_blocks`` on the quality batch, with 64 sampled streams
+   and the entropy jobs by route (``batch.ENTROPY_JOBS``); then
+   ``batch.r4x8_compress_blocks`` /
    ``r4x8_uncompress_blocks`` (rANS 4x8) on the same three batches; then
    ``batch.arith_compress_blocks`` / ``arith_uncompress_blocks`` on the
    quality batch at order 0 and 1 and on the wide batch at order 1; then
@@ -58,12 +67,14 @@ What it does, in order (any failure exits non-zero):
    ``fqz_decompress_blocks``.  Every block must round-trip, a spread
    sample of streams must be byte-identical to the host coder's, the
    and exactly the kernels of each path must have been launched;
-4. profiles one more pass of each order-1 main path (host seconds by
-   function), then, at the shapes the main path gave each kernel,
+4. profiles one more pass of each order-1 main path and of the order-9
+   transform path (host seconds by function), then, at the shapes the
+   main path gave each kernel,
    holds it against its plain version once more and times it (CUDA
    events, warm, median of 5) beside its roofline bound, its plain
    version (one run; the range-coder kernels' plain versions at a
-   length cut to 8192); the 4x16 encoder and the decoder's packed entry
+   length cut to 8192), and the whole 4x8 encode (``rans8_vmem.enc_batch``);
+   the 4x16 encoder and the decoder's packed entry
    also on the rans_pallas path's largest shift group and its second
    one; times the device table build, arith_dec at each arith main-path
    shape (with
@@ -77,8 +88,10 @@ What it does, in order (any failure exits non-zero):
    ``TABLES_DEVICE_MIN``.
 
 ``--ab DIR`` runs none of that: it times arith_enc, arith_dec,
-rans8_dec, rc_enc, the 4x16 encoder (against the parent's whole
-``rans_vmem.enc_batch`` where it has one, and its rans16_enc_packed) and
+rans8_enc (against the parent's kernel and its whole
+``rans8_vmem.enc_batch``), rans8_dec, rc_enc, the 4x16 encoder (against
+the parent's whole ``rans_vmem.enc_batch`` where it has one, and its
+rans16_enc_packed) and
 both 4x16 decoder entries of this checkout against those of the
 checkout at DIR (the parent commit, unpacked with ``git archive``), in
 turns, on the main paths' inputs, and fails if any output differs.
@@ -155,12 +168,6 @@ def same_live(w1, w2, counts) -> bool:
     cap = w1.shape[1]
     live = torch.arange(cap, device=w1.device)[None, :] < counts[:, None]
     return bool(((w1 == w2) | ~live).all())
-
-
-def same_streams(got, want) -> bool:
-    (st, wd, cn), (st2, wd2, cn2) = got, want
-    return (torch.equal(st, st2) and torch.equal(cn, cn2)
-            and same_live(wd, wd2, cn))
 
 
 def garbage_states(B, N):
@@ -242,24 +249,59 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
 RANS8_SHAPES = ((0, False), (64, False), (128, False), (32, True))
 
 
+def same_streams_suffix(got, want) -> bool:
+    """Equality of two encoders' (states, elements, counts), the elements
+    compared over each row's last counts[b] (where the encoders of this
+    checkout leave each block's stream)."""
+    (st, wd, cn), (st2, wd2, cn2) = got, want
+    return (torch.equal(st, st2) and torch.equal(cn, cn2)
+            and same_suffix(wd, wd2, cn))
+
+
+def r8_packed(packed):
+    """4x8 packed rows (numpy (B,A,A) or (B,A)) -> the (B, A or 1, A)
+    int32 tensor rans8_enc reads, on the card."""
+    B, A = packed.shape[0], packed.shape[-1]
+    return torch.from_numpy(np.ascontiguousarray(packed, np.int32)).to(DEV) \
+        .view(B, -1, A)
+
+
 def check_case8(blocks, order, label, garbage=False, max_a=96) -> None:
     """The two rANS 4x8 kernels on one case; tables from the native
     4x8 table build (rows of 4095 slots; alphabets up to ``max_a``);
-    rans8_dec at each of RANS8_SHAPES."""
+    rans8_dec at each of RANS8_SHAPES.  rans8_enc takes alphabets up to
+    255 (the order-1 tables past 48 symbols from global memory); a
+    256-symbol case is encoded by the plain version for the decoder.
+    With ``garbage``, also bytes past the block's alphabet (the zero
+    entry) through rans8_enc, and a truncated stream and arbitrary
+    states through rans8_dec."""
     B, N = blocks.shape
     alpha, packed = testdata.r8_tables(blocks, order, max_a)
     tables = convert.tables8_from_reference(alpha, packed, DEV)
     bt = torch.from_numpy(blocks).to(DEV)
-    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
-    enc_k = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
-    enc_p = rans8_vmem._rans8_enc_plain(sym, ctx, tables, K, geom, order)
-    torch.cuda.synchronize()
-    if not same_streams(enc_k, enc_p):
-        fail(f"rans8_enc != plain at {label}")
+    pk = r8_packed(packed)
+    A = alpha.shape[1]
+    enc_p = rans8_vmem._rans8_enc_plain(bt, tables.alpha, pk, order)
+    enc_k = enc_p
+    if A <= 255:
+        enc_k = rans8_vmem.rans8_enc(bt, tables.alpha, pk, order)
+        torch.cuda.synchronize()
+        if not same_streams_suffix(enc_k, enc_p):
+            fail(f"rans8_enc != plain at {label}")
+    if garbage and int(alpha.max()) < 255:
+        g = torch.Generator(device="cpu").manual_seed(B * 31 + N)
+        above = torch.randint(int(alpha.max()) + 1, 256, (B, N), generator=g,
+                              dtype=torch.uint8).to(DEV)
+        hit = torch.rand((B, N), generator=g).to(DEV) < 0.02
+        bg = torch.where(hit, above, bt).contiguous()
+        if not same_streams_suffix(
+                rans8_vmem.rans8_enc(bg, tables.alpha, pk, order),
+                rans8_vmem._rans8_enc_plain(bg, tables.alpha, pk, order)):
+            fail(f"rans8_enc != plain at {label} with bytes past the "
+                 "alphabet")
 
     st_k, by_k, cn_k = enc_k
-    W = max(int(cn_k.max()), 1)
-    stream = by_k[:, :W].contiguous()
+    stream = convert.words_forward(by_k, cn_k).contiguous()
     variants = [("", st_k, cn_k)]
     if garbage:
         variants += [(" truncated", st_k, cn_k // 2),
@@ -275,6 +317,40 @@ def check_case8(blocks, order, label, garbage=False, max_a=96) -> None:
                      f"global_tables={glob}")
         if not tag and not torch.equal(out_p, bt):
             fail(f"rans8_dec did not return the input at {label}")
+
+
+def check_one_symbol_rows8() -> int:
+    """rans8_enc on constant blocks, whose one symbol owns its row: 4095
+    slots as the native build gives it and 4096 (a stored frequency of 0
+    in a parsed table; x_max = 2^31), both orders, against its plain
+    version; each round-trips through rans8_dec."""
+    n = 0
+    for B, N in ((5, 514), (130, 33)):
+        blocks = np.full((B, N), 70, np.uint8)
+        blocks[::2] = 3
+        for order in (0, 1):
+            alpha, packed = testdata.r8_tables(blocks, order)
+            for total in (4095, 4096):
+                pkn = np.where(packed & 0x1FFF,
+                               (packed >> 13 << 13) | total, 0)
+                bt = torch.from_numpy(blocks).to(DEV)
+                al = torch.from_numpy(alpha).to(DEV)
+                pk = r8_packed(pkn)
+                enc_k = rans8_vmem.rans8_enc(bt, al, pk, order)
+                if not same_streams_suffix(
+                        enc_k, rans8_vmem._rans8_enc_plain(bt, al, pk, order)):
+                    fail(f"rans8_enc != plain on one-symbol rows of {total} "
+                         f"B={B} N={N} order={order}")
+                t = convert.tables8_from_reference(alpha, pkn, DEV)
+                st, by, cn = enc_k
+                out = rans8_vmem.rans8_dec(
+                    st, convert.words_forward(by, cn).contiguous(), cn, t, N,
+                    order)
+                if not torch.equal(out, bt):
+                    fail(f"one-symbol rows of {total} B={B} N={N} "
+                         f"order={order} did not round-trip")
+                n += 1
+    return n
 
 
 def same_bytes(got, want) -> bool:
@@ -510,7 +586,7 @@ def phase_kernels(quick: bool) -> int:
                         f"4x8 wide B={B} N=4096 nsym={nsym} order={order}",
                         garbage=True, max_a=256)
             n += 1
-    return n
+    return n + check_one_symbol_rows8()
 
 
 # ---------------------------------------------------------------------------
@@ -671,6 +747,93 @@ def run_table_routes(blocks, order, streams_want, name, engine="auto",
             f"host, device), s: {walls}; all {B} streams byte-identical "
             "each time")
     return walls
+
+
+def reset_entropy_jobs() -> None:
+    for side in batch.ENTROPY_JOBS.values():
+        for k in side:
+            side[k] = 0
+
+
+# the transform main path's orders and the kernels each must launch:
+# STRIPE with 4 lanes and order-1 and order-0 candidates, whose lanes of
+# equal blocks form device groups; PACK|RLE|order 1, whose RLE literals
+# and metas differ in length from block to block, so that most groups
+# stay under DEVICE_MIN_GROUP and take the host coder
+TRANSFORM_ORDERS = {9: ("rans16_enc_packed", "rans16_dec"), 193: ()}
+
+
+def run_transform_path(blocks, order, sample):
+    """compress_blocks -> uncompress_blocks with the defaults on a
+    transform-flagged order: every block round-trips, ``sample`` spread
+    streams equal the host coder's, only the 4x16 kernels run and those
+    that TRANSFORM_ORDERS names ran.  Prints wall seconds, MB/s, the
+    entropy jobs by route (``batch.ENTROPY_JOBS``) and the table routes;
+    returns them with the launch counts."""
+    B, N = blocks.shape
+    mb = B * N / 1e6
+    name = f"rans4x16 transform synth4 order {order}"
+    rans_vmem.reset_launches()
+    reset_routes()
+    reset_entropy_jobs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = batch.compress_blocks(blocks, order=order)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = batch.uncompress_blocks(streams)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = {"B": B, "N": N, "compress_s": t1 - t0, "uncompress_s": t2 - t1,
+           "compress_MBps": mb / (t1 - t0), "uncompress_MBps": mb / (t2 - t1),
+           "ratio": sum(len(s) for s in streams) / (B * N),
+           "entropy_jobs": {k: dict(v) for k, v in batch.ENTROPY_JOBS.items()},
+           "table_routes": dict(batch.TABLE_ROUTES),
+           "launches": dict(rans_vmem.LAUNCHES)}
+    log(f"main path {name}: {res}")
+    for b in range(B):
+        if outs[b] != blocks[b].tobytes():
+            fail(f"{name}: block {b} did not round-trip")
+    for b in np.linspace(0, B - 1, min(sample, B)).astype(int):
+        if streams[b] != rans4x16.compress(blocks[b], order):
+            fail(f"{name}: stream {b} differs from the host coder's")
+    for k, v in res["launches"].items():
+        if k in TRANSFORM_ORDERS[order] and v < 1:
+            fail(f"{name}: kernel {k} was not launched on the path")
+        if k not in R4X16.kernels and v:
+            fail(f"{name}: kernel {k} is not of this path but was launched")
+    log(f"main path {name}: {B} blocks round-trip, {min(sample, B)} sampled "
+        "streams byte-identical to the host coder")
+    return res
+
+
+def stripe_lanes(blocks, nlanes=4):
+    """The stripe lanes of order 9 as _peel_encode cuts them: lane j of
+    block b is blocks[b, j::nlanes], row b * nlanes + j."""
+    B, N = blocks.shape
+    return np.ascontiguousarray(
+        blocks.reshape(B, N // nlanes, nlanes).transpose(0, 2, 1)
+    ).reshape(B * nlanes, N // nlanes)
+
+
+def transform_kernel_checks(blocks, launches):
+    """The 4x16 encoder and decoder at the shapes the order-9 path gives
+    them: the stripe lanes of the batch, one group per candidate order on
+    the device-table route, each kernel against its plain version
+    (tolerance 0) and timed.  Returns the entries of kernel_times, with
+    the transform phase's launch counts."""
+    lanes = stripe_lanes(blocks)
+    res = []
+    for order in (1, 0):
+        t = time.perf_counter()
+        es = kernel_times(lanes, order, {"rans4x16": launches})
+        log(f"transform order 9 lanes, candidate order {order}: "
+            + "; ".join(f"{e['name']} {e['ms']:.3f} ms == plain "
+                        f"({e['plain_ms']:.0f} ms) at {e['shape']}"
+                        for e in es)
+            + f" ({time.perf_counter() - t:.1f} s)")
+        res += es
+    return res
 
 
 SWEEP_B = (4, 16, 64, 128, 256, 512, 1024)
@@ -844,17 +1007,10 @@ def max_abs_diff(a, b, live=None) -> int:
     return int(d.max())
 
 
-def streams_err(got, want) -> int:
-    """Max abs difference of two encoders' (states, elements, counts),
-    the elements compared up to each block's count."""
-    (st, wd, cn), (st2, wd2, cn2) = got, want
-    live = torch.arange(wd.shape[1], device=DEV)[None, :] < cn[:, None]
-    return max(max_abs_diff(st, st2), max_abs_diff(cn, cn2),
-               max_abs_diff(wd, wd2, live))
-
-
 def streams_err_suffix(got, want) -> int:
-    """The same for the 4x16 encoder, whose streams end each row."""
+    """Max abs difference of two encoders' (states, elements, counts),
+    the elements compared over each row's last counts[b] (where the
+    encoders leave each block's stream)."""
     (st, wd, cn), (st2, wd2, cn2) = got, want
     cap = wd.shape[1]
     live = torch.arange(cap, device=DEV)[None, :] >= cap - cn[:, None]
@@ -964,35 +1120,44 @@ def kernel_times(blocks, order, launches):
     ]
 
 
+def enc8_work(B, N, A, A2, nbytes):
+    """(bytes, operations) of the 4x8 encode of B blocks of N bytes: the
+    blocks, alphabets and packed rows in, the states, counts and emitted
+    bytes out; per symbol 40 (the 4x16 step with its divide counted as
+    20, the lookup, the second emission test and store), per block the
+    256-entry byte -> index table."""
+    return (B * N + B * A + B * A2 * 4 + nbytes + B * (16 + 4),
+            40 * B * N + 256 * B)
+
+
 def kernel_times8(blocks, order, launches):
-    """The same for the two rANS 4x8 kernels."""
+    """The same for the two rANS 4x8 kernels, and the whole 4x8 encode
+    as the main path runs it (``rans8_vmem.enc_batch``: the tables moved
+    to the card, the kernel)."""
     B, N = blocks.shape
-    tables = rans8_tables(blocks, order)
-    A = tables.alpha.shape[1]
+    alpha, packed = rans8_tables(blocks, order)
+    tables = convert.tables8_from_reference(alpha, packed, DEV)
+    A = alpha.shape[1]
     bt = torch.from_numpy(blocks).to(DEV)
+    pk = r8_packed(packed)
     shape = f"B={B} N={N} A={A} order={order}"
     plain = {}
 
     # ---- rans8_enc ----
-    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
-    nq = B * 4 * K
-    enc = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
-    ms_enc = cuda_ms(lambda: rans8_vmem.rans8_enc(
-        sym, ctx, tables, K, geom, order))
+    enc = rans8_vmem.rans8_enc(bt, tables.alpha, pk, order)
+    ms_enc = cuda_ms(lambda: rans8_vmem.rans8_enc(bt, tables.alpha, pk,
+                                                  order))
+    ms_whole = cuda_ms(lambda: rans8_vmem.enc_batch(bt, alpha, packed, order))
     pl_enc = once(lambda: plain.update(enc=rans8_vmem._rans8_enc_plain(
-        sym, ctx, tables, K, geom, order)))
-    err_enc = streams_err(enc, plain.pop("enc"))
-    del sym, ctx
+        bt, tables.alpha, pk, order)))
+    err_enc = streams_err_suffix(enc, plain.pop("enc"))
     st, by, cn = enc
     nbytes = int(cn.sum())
-    enc_bytes = ((2 if order else 1) * nq + tables.bases.numel() * 2
-                 + nbytes + B * (16 + 4))
-    enc_ops = 40 * nq      # the 4x16 step, the lookup, a second compare/shift
+    enc_bytes, enc_ops = enc8_work(B, N, A, pk.shape[1] * A, nbytes)
 
     # ---- rans8_dec ----
     del enc
-    W = max(int(cn.max()), 1)
-    stream = by[:, :W].contiguous()
+    stream = convert.words_forward(by, cn).contiguous()
     del by
     out = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order)
     ms_dec = cuda_ms(lambda: rans8_vmem.rans8_dec(
@@ -1000,18 +1165,21 @@ def kernel_times8(blocks, order, launches):
     pl_dec = once(lambda: plain.update(dec=rans8_vmem._rans8_dec_plain(
         st, stream, cn, tables, N, order)))
     err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
+    nq = B * 4 * rans8_vmem._dec_geometry(N, order)[1]
     dec_bytes = (nbytes + tables.bases.numel() * 2 + B * A
                  + B * (16 + 4) + B * N)
     dec_ops = (16 + 3 * math.ceil(math.log2(A + 1))) * nq
 
     ref = "htscodecs_tpu/ops/rans8_vmem.py"
+    e_enc = entry("rans8_enc", "rans8_enc.cu", f"{ref}:452", shape,
+                  launches["rans4x8"], ms_enc, pl_enc, err_enc, enc_bytes,
+                  enc_ops, None)
+    e_enc["whole_encode_ms"] = ms_whole
     return [
         entry("rans8_dec", "rans8_dec.cu", f"{ref}:252", shape,
               launches["rans4x8"], ms_dec, pl_dec, err_dec, dec_bytes,
               dec_ops, None),
-        entry("rans8_enc", "rans8_enc.cu", f"{ref}:452", shape,
-              launches["rans4x8"], ms_enc, pl_enc, err_enc, enc_bytes,
-              enc_ops, None),
+        e_enc,
     ]
 
 
@@ -1245,24 +1413,24 @@ def arith_launch_sweep(batches):
 
 
 def rans8_tables(blocks, order):
-    """The 4x8 tables that the batch layer builds for a main-path batch."""
+    """The dense 4x8 tables that the batch layer builds for a main-path
+    batch: numpy (alpha (B,A) u8, packed (B,A,A) or (B,A) i32)."""
     res = batch._pmap(lambda b: native.r8_build_tables_dense(b, order),
                       list(blocks))
     if order:
         alpha, packed, _A = rans_v2.densify_builds((r[1], r[2]) for r in res)
-    else:
-        alpha, packed = batch._r8_dense_o0(res)
-    return convert.tables8_from_reference(alpha, packed, DEV)
+        return alpha, packed
+    return batch._r8_dense_o0(res)
 
 
 def rans8_inputs(blocks, order):
     """The rans8_dec inputs of a main-path batch: (states, stream,
     counts, tables), the stream from rans8_enc."""
-    tables = rans8_tables(blocks, order)
+    alpha, packed = rans8_tables(blocks, order)
     bt = torch.from_numpy(blocks).to(DEV)
-    sym, ctx, K, geom = rans_vmem.enc_inputs(bt, tables, order)
-    st, by, cn = rans8_vmem.rans8_enc(sym, ctx, tables, K, geom, order)
-    return st, by[:, :max(int(cn.max()), 1)].contiguous(), cn, tables
+    st, by, cn = rans8_vmem.enc_batch(bt, alpha, packed, order)
+    return (st, convert.words_forward(by, cn).contiguous(), cn,
+            convert.tables8_from_reference(alpha, packed, DEV))
 
 
 def dec_sweep(batches):
@@ -1432,9 +1600,63 @@ def ab_4x16(par, name, blocks, order, res) -> None:
         f"{k} {v}" for k, v in res.items() if tag in k))
 
 
+def same_enc8(par_out, out) -> bool:
+    """The parent's 4x8 encoder output (each stream at the start of its
+    row, before this layout changed, or at the end) equals this
+    checkout's (at the end)."""
+    (pst, pby, pcn), (st, by, cn) = par_out, out
+    if not (torch.equal(pst, st) and torch.equal(pcn, cn)):
+        return False
+    fwd = convert.words_forward(by, cn)
+    W = fwd.shape[1]
+    return ((pby.shape == by.shape and same_suffix(pby, by, cn))
+            or (pby.shape[1] >= W and same_live(pby[:, :W], fwd, cn)))
+
+
+def ab_rans8_enc(par, name, blocks, order, res) -> None:
+    """rans8_enc of this checkout against the parent's rans8_enc kernel
+    (on the inputs its contract takes, made once) and against the
+    parent's whole ``rans8_vmem.enc_batch`` (tables conversion, inputs,
+    kernel), on the tables the 4x8 main path builds: outputs equal,
+    times in turns."""
+    par_r8, par_vmem, par_convert = par
+    alpha, packed = rans8_tables(blocks, order)
+    B, N = blocks.shape
+    A = alpha.shape[1]
+    bt = torch.from_numpy(blocks).to(DEV)
+    al = torch.from_numpy(alpha).to(DEV)
+    pk = r8_packed(packed)
+    out = rans8_vmem.rans8_enc(bt, al, pk, order)
+    if hasattr(par_vmem, "enc_inputs"):       # the parent's old contract
+        ptab = par_convert.tables8_from_reference(alpha, packed, DEV)
+        sym, ctx, K, geom = par_vmem.enc_inputs(bt, ptab, order)
+        runs = {"kernel": lambda: par_r8.rans8_enc(sym, ctx, ptab, K, geom,
+                                                   order),
+                "enc_batch": lambda: par_r8.enc_batch(
+                    bt, par_convert.tables8_from_reference(alpha, packed,
+                                                           DEV), order)}
+    else:
+        runs = {"kernel": lambda: par_r8.rans8_enc(bt, al, pk, order),
+                "enc_batch": lambda: par_r8.enc_batch(bt, alpha, packed,
+                                                      order)}
+    mine = {"kernel": lambda: rans8_vmem.rans8_enc(bt, al, pk, order),
+            "enc_batch": lambda: rans8_vmem.enc_batch(bt, alpha, packed,
+                                                      order)}
+    tag = f"{name} B={B} A={A}"
+    for k, fn in runs.items():
+        if not same_enc8(fn(), out):
+            fail(f"--ab: the parent's rans8_enc ({k}) and the change's "
+                 f"differ on {tag}")
+        res[f"rans8_enc vs parent {k} {tag}"] = in_turns(
+            {"parent": fn, "change": mine[k]})
+    log(f"A/B rans8_enc {tag}: " + "; ".join(
+        f"{k} {v}" for k, v in res.items() if k.startswith("rans8_enc")
+        and tag in k))
+
+
 def ab_run(parent: str, B: int) -> None:
-    """arith_enc, arith_dec, rans8_dec, rc_enc and the 4x16 encoder and
-    decoder of this checkout against those of the checkout at
+    """arith_enc, arith_dec, rans8_enc, rans8_dec, rc_enc and the 4x16
+    encoder and decoder of this checkout against those of the checkout at
     ``parent``, on the main paths' inputs, in one process on one card:
     outputs must be equal, times in turns."""
     par_arith, par_rc, par_r8, *par_4x16 = load_parent(parent)
@@ -1479,6 +1701,8 @@ def ab_run(parent: str, B: int) -> None:
                 fail(f"--ab: rans8_dec of the {k} did not decode {name}")
         res[f"rans8_dec {name}"] = in_turns(runs)
         del st, s8, cn8, tables, want
+        ab_rans8_enc((par_r8, par_4x16[0], par_4x16[2]), name, blocks, order,
+                     res)
         ab_4x16(par_4x16, name, blocks, order, res)
         log(f"A/B {name} B={Bb}: " + "; ".join(
             f"{k} {res[f'{k} {name}']}"
@@ -1506,8 +1730,9 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="a thin slice of the kernel comparison grid")
     ap.add_argument("--ab", metavar="DIR",
-                    help="only time arith_enc, arith_dec, rans8_dec, rc_enc "
-                         "and the 4x16 encoder and decoder against those of "
+                    help="only time arith_enc, arith_dec, rans8_enc, "
+                         "rans8_dec, rc_enc and the 4x16 encoder and "
+                         "decoder against those of "
                          "the checkout at DIR (e.g. the parent commit "
                          "unpacked with git archive), in turns")
     args = ap.parse_args()
@@ -1580,6 +1805,11 @@ def main() -> None:
     launches["packed"], groups = run_pallas_path(q4, 1)
     run_pallas_path(q4, 0)
 
+    # transform-flagged orders: the stripe lanes and transformed bodies
+    # through the same batched groups
+    transform = {o: run_transform_path(q4, o, 64) for o in TRANSFORM_ORDERS}
+    transform_entries = transform_kernel_checks(q4, transform[9]["launches"])
+
     # rANS 4x8: its host coder is pure Python, so the sample is 16
     launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
     run_main_path(R4X8, "synth4 order 0", q4, 0, 16)
@@ -1601,6 +1831,11 @@ def main() -> None:
     profile_main_path(R4X16, q4, 1)
     profile_main_path(R4X8, q4, 1)
     profile_main_path(ARITH, q4, 1)
+    streams9 = profile_call("compress_blocks order=9", batch.compress_blocks,
+                            q4, 9)
+    profile_call("uncompress_blocks order=9", batch.uncompress_blocks,
+                 streams9)
+    del streams9
     profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
                  "device")
     entries = kernel_times(q4, 1, launches)
@@ -1617,6 +1852,15 @@ def main() -> None:
     del wide, q4, shapes
     entries += kernel_times_rc(jobs, launches["fqz"])
     del jobs
+    # the transform path's shapes go beside the plain 4x16 shape
+    for e in entries:
+        extra = [{k: t[k] for k in ("shape", "launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by")}
+                 for t in transform_entries if t["name"] == e["name"]]
+        if extra:
+            e["transform_shapes"] = extra
+            e["max_abs_err"] = max([e["max_abs_err"]]
+                                   + [t["max_abs_err"] for t in extra])
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
@@ -1640,6 +1884,7 @@ def main() -> None:
     log(f"rans16_dec and rans8_dec [tables in shared memory, ms] by threads "
         f"per CTA: {dsweep}")
     print(json.dumps({"dec_sweep_ms": dsweep}), flush=True)
+    print(json.dumps({"transform_paths": transform}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

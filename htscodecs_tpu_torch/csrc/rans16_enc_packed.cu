@@ -69,83 +69,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
 #include "rans_group.cuh"
-#include "rc_core.cuh"
 
 #define RANS_L (1u << 15)
-#define PACK_SHIFT 13
-#define PACK_MASK ((1 << PACK_SHIFT) - 1)
-#define ENC_THREADS 32      // 8 blocks per CTA
-#define RB 128              // staged bytes per lane (order 1)
-// Ring and byte-table strides, padded so that the lanes of a warp, which
-// read at the same offsets of their own rings and tables, hit different
-// banks of shared memory (unpadded, all 32 lanes of an order-1 warp read
-// one bank): an order-1 lane's ring RB + 16 bytes (4-way at worst; a
-// ring must start on 16 bytes), an order-0 group's 4 RB + 16, a byte
-// table 256 + 4.  A block's ring space is RING_BLK bytes.
-#define RING_STRIDE1 (RB + 16)
-#define RING_STRIDE0 (4 * RB + 16)
-#define RING_BLK (4 * RING_STRIDE1)
-#define LUT_STRIDE 260
-#define SE 16               // steps between two staging rounds (even)
-
-namespace {
-
-// A range of bytes [lo, hi] read from hi down, staged in the ring `buf`
-// (a power of two, `mask` + 1 bytes): relative byte r = address - base
-// (base = the range's first byte aligned down to 16) sits at
-// buf[r & mask]; segment k is the 16 bytes at base + 16 k.  Bytes past
-// hi are not copied (zero-filled).
-struct BackStage {
-    uint8_t* buf;
-    const uint8_t* base;
-    int end;        // relative end of the range (exclusive)
-    int next;       // the next segment to ask for (descending)
-    int mask;
-
-    __device__ __forceinline__ void init(uint8_t* ring, int bytes,
-                                         const uint8_t* lo, int len)
-    {
-        buf = ring;
-        mask = bytes - 1;
-        base = reinterpret_cast<const uint8_t*>((uintptr_t)lo & ~(uintptr_t)15);
-        end = (int)(lo - base) + len;
-        next = (end - 1) >> 4;
-    }
-
-    // ask for the segments from `next` down to `down_to`
-    __device__ __forceinline__ void fill(int down_to)
-    {
-        for (down_to = max(down_to, 0); next >= down_to; --next) {
-            const int a = next * 16;
-            cp_async16(buf + (a & mask), base + a, (uint32_t)min(end - a, 16));
-        }
-    }
-
-    // ask for what the ring can hold below relative byte `r`, the
-    // highest still to be read: a segment's slot is free once the
-    // segment a ring's length above it lies wholly above r
-    __device__ __forceinline__ void fill_below(int r)
-    {
-        fill((r >> 4) - (mask + 1) / 16 + 1);
-    }
-
-    __device__ __forceinline__ uint32_t at(int r) const { return buf[r & mask]; }
-};
-
-}  // namespace
-
-// Shared memory of one CTA of `bpc` blocks: the byte rings (RING_BLK
-// per block), the byte tables (LUT_STRIDE per block), then with tables
-// in shared memory the entries (A2 + 1 of 8 bytes per block).
-// ops/rans_vmem.py (_enc_smem) holds the same rule.
-static size_t rans16_enc_smem(int bpc, int A2, bool tables)
-{
-    size_t s = (size_t)bpc * (RING_BLK + LUT_STRIDE);
-    if (tables) s += (size_t)bpc * (A2 + 1) * 8;
-    return s;
-}
 
 template <int ORDER, bool SMEM>
 __global__ void __launch_bounds__(ENC_THREADS)
@@ -175,23 +101,7 @@ rans16_enc_packed_kernel(const uint8_t* __restrict__ blocks,
     uint8_t* const luts = rings + bpc * RING_BLK;
     uint2* const tabs = reinterpret_cast<uint2*>(rings + bpc * (RING_BLK + LUT_STRIDE));
 
-    // byte -> dense index: the count of alphabet entries below the byte
-    for (int t = tid; t < nblk * 256; t += ENC_THREADS) {
-        const uint8_t* al = alpha + (size_t)(b0 + (t >> 8)) * A;
-        const int v = t & 255;
-        int c = 0;
-        for (int k = 0; k < A; ++k) c += al[k] < v;
-        luts[(t >> 8) * LUT_STRIDE + v] = (uint8_t)c;
-    }
-    if (SMEM) {
-        for (int t = tid; t < nblk * (A2 + 1); t += ENC_THREADS) {
-            const int gi = t / (A2 + 1);
-            const int k = t - gi * (A2 + 1);
-            const uint32_t e = k < A2 ? (uint32_t)packed[(size_t)(b0 + gi) * A2 + k] : 0u;
-            const uint32_t f = e & PACK_MASK;
-            tabs[t] = make_uint2(e, rc_udiv_recip(f ? f : 1u));
-        }
-    }
+    enc_prologue<SMEM>(luts, tabs, alpha, packed, b0, nblk, A, A2, tid);
 
     // the lane's bytes: order 1 its quarter (state 3: through the tail),
     // order 0 the whole block, staged by lane 0
@@ -340,7 +250,7 @@ extern "C" int rans16_enc_packed_launch(const void* blocks, const void* alpha,
         return (int)cudaErrorInvalidValue;
     if ((uintptr_t)blocks & 15) return (int)cudaErrorMisalignedAddress;
     const int bpc = ENC_THREADS / 4;
-    const size_t smem = rans16_enc_smem(bpc, order ? A * A : A, smem_tables != 0);
+    const size_t smem = enc_smem(bpc, order ? A * A : A, smem_tables != 0);
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,

@@ -1,7 +1,7 @@
 """Batched block codec API (rANS 4x16, rANS 4x8 and arith_dynamic,
 order 0 and 1; the fqzcomp_qual encode).
 
-Counterpart of ``htscodecs_tpu/models/batch.py`` for the plain orders.
+Counterpart of ``htscodecs_tpu/models/batch.py``.
 Compresses/decompresses many independent CRAM blocks at once: the
 entropy payload work of a large enough group of equal-length blocks
 goes to the batched CUDA engine (ops/rans_vmem.py: its one encoder reads
@@ -36,9 +36,14 @@ is the host decoder over the thread pool.  In the JAX package
 ``engine="auto"`` means the host for these two codecs; here, as for the
 rANS entries, it means the card for every large enough group.
 
-Transform-flagged orders (PACK / RLE / STRIPE / NOSZ) are not batched
-yet: they go to the host ``rans4x16.compress`` / ``uncompress`` block
-by block, byte-exact.
+Transform-flagged rANS 4x16 orders (PACK / RLE / CAT / NOSZ, STRIPE
+containers) are peeled on the host, and their entropy payloads, every
+stripe lane's included, join the same batched device groups as plain
+blocks: on encode every candidate payload of a stripe lane's method
+search is deferred (``_peel_encode``, ``_encode_entropy_jobs``), on
+decode every lane and body (``_peel_wrapper``, ``_peel_stripe``,
+``_decode_entropy_jobs``).  A finisher that cannot complete a block
+sends it to the host coder.
 
 Every entry point but the host-only ``fqz_decompress_blocks`` takes
 ``device`` and defaults to ``"cuda"``.  With no
@@ -58,7 +63,8 @@ import torch
 
 from . import arith, fqz, rans4x8, rans4x16
 from .. import native
-from ..ops import arith_vmem, convert, rans8_v2, rans_v2, rans_vmem, tables_v2
+from ..ops import (arith_vmem, convert, pack, rans8_v2, rans_v2, rans_vmem,
+                   rle, tables_v2)
 from ..utils import varint
 
 # Below this many blocks in a shape group, the host path wins (device
@@ -83,12 +89,15 @@ TABLES_DEVICE_MIN = 64
 # that a run can show which route a batch took
 TABLE_ROUTES = {"device": 0, "host": 0}
 
+# rANS 4x16 entropy jobs of transform-flagged encodes and of all decodes
+# by route ("device": a batched group, "host": the native coder one job
+# at a time), counted as TABLE_ROUTES counts groups
+ENTROPY_JOBS = {"encode": {"device": 0, "host": 0},
+                "decode": {"device": 0, "host": 0}}
+
 # Host table construction is native C via ctypes (GIL released), so a
 # thread pool scales it across cores.
 _POOL = ThreadPoolExecutor(max_workers=min(16, (os.cpu_count() or 4)))
-
-_TRANSFORM_FLAGS = (rans4x16.X_PACK | rans4x16.X_RLE | rans4x16.X_NOSZ
-                    | rans4x16.X_STRIPE)
 
 
 def _pmap(fn, items):
@@ -113,9 +122,12 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
                     device="cuda") -> list[bytes]:
     """Compress a sequence of blocks with the rANS 4x16 codec.
 
-    Plain orders 0/1 batch onto the device; any other reference order
-    bit-field (PACK/RLE/NOSZ, STRIPE containers) is encoded by the host
-    coder block by block.  Streams are byte-identical to
+    Any reference order bit-field is accepted: plain 0/1 batches
+    directly; transform-flagged orders (PACK/RLE/NOSZ, STRIPE
+    containers) peel their transforms on the host and defer every
+    entropy payload, every STRIPE lane's method-search candidate
+    included (reference rANS_static4x16pr.c:1190-1213), into the same
+    batched device groups.  Streams are byte-identical to
     ``rans4x16.compress`` in every path.
 
     engine: "auto" | "device" | "host".
@@ -125,6 +137,8 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
     out: list[bytes | None] = [None] * len(arrs)
 
     plain_order = order in (0, 1)
+    if not plain_order and engine != "host":
+        return _compress_blocks_transform(arrs, order, engine, dev)
     groups: dict[int, list[int]] = defaultdict(list)
     for i, a in enumerate(arrs):
         if plain_order and engine != "host" and len(a) >= 32:
@@ -143,6 +157,188 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
         for k, i in enumerate(idxs):
             out[i] = _frame(order, n, bodies[k], batch[k])
 
+    return out  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------
+# transform-flagged encode: peel on the host, batch the entropy payloads
+
+def _defer_entropy(jobs: list, data: np.ndarray, order01: int) -> int:
+    jid = len(jobs)
+    jobs.append((data, order01))
+    return jid
+
+
+def _finish(cand, res):
+    return cand[1] if cand[0] == "done" else cand[1](res)
+
+
+def _peel_encode(data: np.ndarray, order: int, jobs: list):
+    """Mirror of rans4x16.compress with the entropy stages deferred.
+
+    Returns ("done", bytes) or ("fin", callable(res) -> bytes | None)
+    where res maps job ids to entropy body bytes (None -> the caller
+    falls back to the host encoder for the whole block)."""
+    in_size = len(data)
+    if in_size <= 20:
+        order &= ~rans4x16.X_STRIPE
+
+    if order & rans4x16.X_STRIPE:
+        N = order >> 8
+        if N == 0:
+            N = 4
+        if N > 255:
+            raise ValueError("stripe N too large")
+        head = bytearray()
+        head.append(order & ~rans4x16.X_NOSZ & 0xFF)
+        varint.put_uint(head, in_size)
+        head.append(N)
+        lane_cands = []
+        for j in range(N):
+            lane = data[j::N]
+            methods = [m for m in (1, 64, 128, 0) if (order & m) == m]
+            lane_cands.append(
+                [_peel_encode(lane, m | rans4x16.X_NOSZ, jobs)
+                 for m in methods])
+
+        def fin(res, head=bytes(head), lane_cands=lane_cands):
+            streams = []
+            for cands in lane_cands:
+                best = None
+                for c in cands:
+                    s = _finish(c, res)
+                    if s is None:
+                        return None
+                    if best is None or len(s) < len(best):
+                        best = s
+                streams.append(best)
+            out = bytearray(head)
+            for s in streams:
+                varint.put_uint(out, len(s))
+            for s in streams:
+                out += s
+            return bytes(out)
+
+        return ("fin", fin)
+
+    if order & rans4x16.X_CAT:
+        out = bytearray([rans4x16.X_CAT])
+        varint.put_uint(out, in_size)
+        return ("done", bytes(out) + data.tobytes())
+
+    do_pack = order & rans4x16.X_PACK
+    do_rle = order & rans4x16.X_RLE
+    no_size = order & rans4x16.X_NOSZ
+
+    head = bytearray()
+    head.append(order & 0xFF)
+    if not no_size:
+        varint.put_uint(head, in_size)
+    order &= 0xF
+
+    if do_pack and in_size:
+        packed, pmeta, _nsym = pack.pack(data)
+        if len(pmeta) == 1 and pmeta[0] > 16:
+            head[0] &= ~rans4x16.X_PACK & 0xFF
+        else:
+            data = packed
+            in_size = len(packed)
+            head += pmeta
+            varint.put_uint(head, in_size)
+    elif do_pack:
+        head[0] &= ~rans4x16.X_PACK & 0xFF
+
+    rle_meta_jid = None
+    rmeta = rle_len = None
+    if do_rle and in_size:
+        lits, runs, rle_syms = rle.encode(data)
+        rmeta = bytes([len(rle_syms) & 0xFF]) + bytes(rle_syms.tolist()) + runs
+        rle_len = len(lits)
+        if rle_len + len(rmeta) >= 0.99 * in_size:
+            head[0] &= ~rans4x16.X_RLE & 0xFF
+        else:
+            rle_meta_jid = _defer_entropy(
+                jobs, np.frombuffer(rmeta, dtype=np.uint8), 0)
+            data = lits
+            in_size = rle_len
+    elif do_rle:
+        head[0] &= ~rans4x16.X_RLE & 0xFF
+
+    if order and in_size < 8:
+        head[0] &= ~1
+        order &= ~1
+
+    # the body is order-1 ONLY for order == 1: low-nibble values 2..15
+    # code order-0 (reference rANS_static4x16pr.c:1327)
+    jid = _defer_entropy(jobs, data, 1 if order == 1 else 0)
+
+    def fin(res, head=bytes(head), data=data, in_size=in_size,
+            jid=jid, rle_meta_jid=rle_meta_jid, rmeta=rmeta,
+            rle_len=rle_len, no_size=no_size):
+        out = bytearray(head)
+        if rle_meta_jid is not None:
+            c_rmeta = res.get(rle_meta_jid)
+            if c_rmeta is None:
+                return None
+            if len(c_rmeta) < len(rmeta):
+                varint.put_uint(out, len(rmeta) * 2)
+                varint.put_uint(out, rle_len)
+                varint.put_uint(out, len(c_rmeta))
+                out += c_rmeta
+            else:
+                varint.put_uint(out, len(rmeta) * 2 + 1)
+                varint.put_uint(out, rle_len)
+                out += rmeta
+        body = res.get(jid)
+        if body is None:
+            return None
+        if len(body) >= in_size:
+            out[0] = (out[0] & ~3 & 0xFF) | rans4x16.X_CAT | no_size
+            body = data.tobytes()
+        return bytes(out) + body
+
+    return ("fin", fin)
+
+
+def _encode_entropy_jobs(jobs: list, engine: str, dev) -> dict:
+    """Encode deferred (data, order01) entropy jobs, batching same-shape
+    groups through the device engine (``_bodies_o0`` / ``_bodies_o1``,
+    whose groups of at least ``TABLES_DEVICE_MIN`` blocks build their
+    tables on the card).  Returns {jid: body bytes}."""
+    results: dict[int, bytes] = {}
+    groups: dict[tuple, list[int]] = defaultdict(list)
+    for jid, (data, o) in enumerate(jobs):
+        groups[(len(data), o)].append(jid)
+    for (n, o), jids in groups.items():
+        if _small_group(len(jids), n, engine) or n < 32:
+            ENTROPY_JOBS["encode"]["host"] += len(jids)
+            for jid in jids:
+                d = jobs[jid][0]
+                results[jid] = (rans4x16._compress_o1(d) if o
+                                else rans4x16._compress_o0(d))
+            continue
+        ENTROPY_JOBS["encode"]["device"] += len(jids)
+        batch = np.stack([jobs[j][0] for j in jids])
+        bodies = _bodies_o1(batch, dev) if o else _bodies_o0(batch, dev)
+        for jid, body in zip(jids, bodies):
+            results[jid] = body
+    return results
+
+
+def _compress_blocks_transform(arrs, order: int, engine: str,
+                               dev) -> list[bytes]:
+    out: list[bytes | None] = [None] * len(arrs)
+    jobs: list = []
+    fins: list[tuple[int, tuple]] = []
+    for i, a in enumerate(arrs):
+        try:
+            fins.append((i, _peel_encode(a, order, jobs)))
+        except ValueError:
+            out[i] = rans4x16.compress(a, order)
+    res = _encode_entropy_jobs(jobs, engine, dev) if jobs else {}
+    for i, cand in fins:
+        s = _finish(cand, res)
+        out[i] = s if s is not None else rans4x16.compress(arrs[i], order)
     return out  # type: ignore[return-value]
 
 
@@ -301,40 +497,153 @@ def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
 # decode
 
 def _peel_wrapper(s: bytes, out_size):
-    """Parse a plain or CAT rans4x16 wrapper down to its entropy
-    payload (the order byte carries no transform flag here).
+    """Parse a non-STRIPE rans4x16 wrapper down to its entropy payload.
 
     Mirrors rans4x16._uncompress_into (reference
     rANS_static4x16pr.c:1435-1584) but DEFERS the entropy decode so
     payloads from many blocks batch together.  Returns
-      ("cat", data np.uint8)               — finished output
-      ("entropy", order, body, out size)   — to be decoded
-    or None for anything this path cannot handle (caller falls back).
+      ("cat", data np.uint8)                          — finished output
+      ("entropy", order, body, tmp1 size, post)       — post(tmp1) -> np
+    or None for anything this path cannot handle (the caller takes the
+    host coder).
     """
     end = len(s)
-    order = s[0]
-    do_cat = order & rans4x16.X_CAT
-    order &= 1
-    osz, pos = varint.get_uint(s, 1, end)
-    if out_size is not None and osz > out_size:
+    if end == 0:
         return None
-    if end - pos == 0:
-        return ("cat", np.zeros(0, np.uint8))
-    if do_cat:
-        if osz > end - pos:
+    order = s[0]
+    if order & rans4x16.X_STRIPE:
+        return None
+    pos = 1
+    do_pack = order & rans4x16.X_PACK
+    do_rle = order & rans4x16.X_RLE
+    do_cat = order & rans4x16.X_CAT
+    no_size = order & rans4x16.X_NOSZ
+    order &= 1
+    try:
+        if not no_size:
+            osz, pos = varint.get_uint(s, pos, end)
+        else:
+            if out_size is None:
+                return None
+            osz = out_size
+        if out_size is not None and osz > out_size:
             return None
-        return ("cat", np.frombuffer(s[pos:pos + osz], np.uint8))
-    return ("entropy", order, s[pos:], osz)
+        tmp1_size = osz
+
+        pmap = None
+        vpb = 0
+        if do_pack:
+            pmap, vpb, pos = pack.unpack_meta(s, pos, end)
+            if pmap is None:
+                return None
+            psz, pos = varint.get_uint(s, pos, end)
+            if psz > tmp1_size:
+                return None
+            tmp1_size = psz
+
+        rle_meta = None
+        if do_rle:
+            u_meta_size, pos = varint.get_uint(s, pos, end)
+            rle_len, pos = varint.get_uint(s, pos, end)
+            if rle_len > tmp1_size:
+                return None
+            if u_meta_size & 1:
+                u_meta = min(u_meta_size // 2, end - pos)
+                rle_meta = bytes(s[pos:pos + u_meta])
+                c_meta_size = u_meta
+            else:
+                c_meta_size, pos2 = varint.get_uint(s, pos, end)
+                u_meta_size //= 2
+                blob = rans4x16._uncompress_o0(
+                    memoryview(s), pos2, end, u_meta_size)
+                if blob is None:
+                    return None
+                rle_meta = blob.tobytes()
+                pos = pos2
+            if c_meta_size + pos > end:
+                return None
+            pos += c_meta_size
+            tmp1_size = rle_len
+    except Exception:
+        # any malformed header: the host coder gives the verdict
+        return None
+
+    def post(tmp1: np.ndarray):
+        tmp2 = tmp1
+        if do_rle:
+            if rle_meta is None or len(rle_meta) == 0:
+                return None
+            nsyms = rle_meta[0] if rle_meta[0] else 256
+            if len(rle_meta) < 1 + nsyms:
+                return None
+            tmp2 = rle.decode(
+                tmp1, rle_meta[1 + nsyms:],
+                np.frombuffer(rle_meta[1:1 + nsyms], dtype=np.uint8), osz)
+            if tmp2 is None:
+                return None
+        if do_pack:
+            unpacked = len(tmp2) if vpb == 1 else osz
+            return pack.unpack(tmp2, unpacked, vpb, pmap)
+        return tmp2
+
+    if end - pos == 0:
+        r = post(np.zeros(0, np.uint8))
+        return None if r is None else ("cat", r)
+    if do_cat:
+        if tmp1_size > end - pos or (out_size is not None
+                                     and tmp1_size > out_size):
+            return None
+        r = post(np.frombuffer(s[pos:pos + tmp1_size], np.uint8))
+        return None if r is None else ("cat", r)
+    return ("entropy", order, s[pos:], tmp1_size, post)
+
+
+def _peel_stripe(s: bytes, out_size):
+    """Parse a STRIPE container into lane sub-streams.  Returns
+    (ulen, N, [(sub_buf, lane_len), ...]) or None.  Lane i decodes
+    against the rest of the container (rANS_static4x16pr.c:1412-1426).
+    """
+    end = len(s)
+    try:
+        ulen, pos = varint.get_uint(s, 1, end)
+        if pos >= end:
+            return None
+        N = s[pos]
+        pos += 1
+        if N == 0:
+            return None
+        if out_size is not None and ulen != out_size:
+            return None
+        clens = []
+        tot = 0
+        for _ in range(N):
+            c, pos = varint.get_uint(s, pos, end)
+            if pos > end or c > end or c < 1:
+                return None
+            clens.append(c)
+            tot += c
+        if pos + tot > end:
+            return None
+    except Exception:
+        # any malformed header: the host coder gives the verdict
+        return None
+    stripe_end = pos + tot
+    lanes = []
+    for i in range(N):
+        lane_len = ulen // N + (1 if (ulen % N) > i else 0)
+        lanes.append((s[pos:stripe_end], lane_len))
+        pos += clens[i]
+    return ulen, N, lanes
 
 
 def uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
                       device="cuda") -> list[bytes]:
     """Decompress a sequence of rANS 4x16 streams.
 
-    Plain and CAT streams are peeled host-side and their entropy
-    payloads batch onto the device; transform-flagged streams
-    (PACK/RLE/NOSZ and STRIPE containers) are decoded by the host
-    coder."""
+    Transform-flagged streams (PACK/RLE/CAT/NOSZ and STRIPE containers)
+    are peeled on the host and their entropy payloads, every stripe
+    lane's included, join the same batched device decode as the plain
+    streams."""
     dev = rans_v2.check_device(device)
     streams = [bytes(s) for s in streams]
     out: list[bytes | None] = [None] * len(streams)
@@ -343,31 +652,89 @@ def uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
 
     use_batch = engine != "host" and native.available()
 
-    jobs: list[tuple] = []            # (jid, order, body, out size)
-    owners: list[int] = []            # jid -> stream index
+    def host(i):
+        out[i] = rans4x16.uncompress(
+            streams[i], out_sizes[i] if out_sizes is not None else None)
+
+    # ---- peel wrappers into deferred entropy jobs --------------------
+    # job: (jid, order, body, tmp1_size); finishers run after decode
+    jobs: list[tuple] = []
+    finishers: list[tuple] = []       # (i, kind, state)
     for i, s in enumerate(streams):
         osize = out_sizes[i] if out_sizes is not None else None
-        p = None
-        if use_batch and not s[0] & _TRANSFORM_FLAGS:
-            p = _peel_wrapper(s, osize)
-        if p is None:
-            out[i] = rans4x16.uncompress(s, osize)
-        elif p[0] == "cat":
-            out[i] = p[1].tobytes()
+        if not use_batch:
+            host(i)
+            continue
+        if s[0] & rans4x16.X_STRIPE:
+            st = _peel_stripe(s, osize)
+            if st is None:
+                host(i)
+                continue
+            ulen, N, lanes = st
+            lane_ids = []
+            bad = False
+            for sub, lane_len in lanes:
+                p = _peel_wrapper(sub, lane_len)
+                if p is None:
+                    bad = True
+                    break
+                if p[0] == "cat":
+                    if len(p[1]) != lane_len:
+                        bad = True
+                        break
+                    lane_ids.append(("done", p[1]))
+                else:
+                    _k, order, body, t1, post = p
+                    jid = len(jobs)
+                    jobs.append((jid, order, body, t1))
+                    lane_ids.append(("job", jid, post, lane_len))
+            if bad:
+                host(i)
+                continue
+            finishers.append((i, "stripe", (ulen, N, lane_ids)))
         else:
-            _k, order, body, osz = p
-            jobs.append((len(jobs), order, body, osz))
-            owners.append(i)
+            p = _peel_wrapper(s, osize)
+            if p is None:
+                host(i)
+            elif p[0] == "cat":
+                out[i] = p[1].tobytes()
+            else:
+                _k, order, body, t1, post = p
+                jid = len(jobs)
+                jobs.append((jid, order, body, t1))
+                finishers.append((i, "plain", (jid, post)))
 
     results = _decode_entropy_jobs(jobs, engine, dev) if jobs else {}
 
-    for jid, i in enumerate(owners):
-        r = results.get(jid)
-        if r is None:
-            out[i] = rans4x16.uncompress(
-                streams[i], out_sizes[i] if out_sizes is not None else None)
+    # ---- assemble ----------------------------------------------------
+    for i, kind, state in finishers:
+        if kind == "plain":
+            jid, post = state
+            tmp1 = results.get(jid)
+            r = post(tmp1) if tmp1 is not None else None
+            if r is None:
+                host(i)
+            else:
+                out[i] = r.tobytes()
         else:
-            out[i] = r.tobytes()
+            ulen, N, lane_ids = state
+            buf = np.zeros(ulen, np.uint8)
+            ok = True
+            for li, lane_entry in enumerate(lane_ids):
+                if lane_entry[0] == "done":
+                    lane = lane_entry[1]
+                else:
+                    _t, jid, post, lane_len = lane_entry
+                    tmp1 = results.get(jid)
+                    lane = post(tmp1) if tmp1 is not None else None
+                    if lane is None or len(lane) != lane_len:
+                        ok = False
+                        break
+                buf[li::N] = lane
+            if ok:
+                out[i] = buf.tobytes()
+            else:
+                host(i)
     return out  # type: ignore[return-value]
 
 
@@ -396,6 +763,7 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
                         (jid, s, off, alpha, packed))
             else:
                 # wide alphabet (A > 96): the native scalar decoder
+                ENTROPY_JOBS["decode"]["host"] += 1
                 rr = _host_decode(1, s, osz)
                 if rr is not None:
                     results[jid] = rr
@@ -410,6 +778,7 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
     for key, items in groups.items():
         order, osz = key[0], key[1]
         if _small_group(len(items), osz, engine):
+            ENTROPY_JOBS["decode"]["host"] += len(items)
             for it in items:
                 r = _host_decode(order, it[1], osz)
                 if r is not None:
@@ -442,6 +811,7 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
                 sts[k, sym] = slot - t[5]
             dense = rans_v2.densify_group_o0(frs, sts)
             if dense is None:
+                ENTROPY_JOBS["decode"]["host"] += len(items)
                 for it in items:
                     rr = _host_decode(0, it[1], osz)
                     if rr is not None:
@@ -450,6 +820,7 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
             alpha, packed, _ = dense
             dec = rans_v2.dec_o0_batch(states, words, osz, alpha, packed,
                                        device=dev, counts=nws)
+        ENTROPY_JOBS["decode"]["device"] += len(items)
         for k, it in enumerate(items):
             results[it[0]] = dec[k]
 

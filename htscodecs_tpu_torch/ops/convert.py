@@ -17,12 +17,12 @@ or a ``(B,)`` vector.  The port's CUDA kernels read:
   mask, the kernels reinterpret the pointers as unsigned)
 - counts (B,) int32: words that belong to each block
 
-The rANS 4x8 engine (``ops/rans8_vmem.py``) reads the same ``Tables``
+The rANS 4x8 decoder (``ops/rans8_vmem.py``) reads the same ``Tables``
 with two differences: the successor column of ``bases`` holds each
 row's own total (4x8 rows normalise to 4095 slots), and ``shift`` is
-filled with 12, the codec's fixed precision.  Its stream is plain
-``(B, W) uint8`` (the bytes after the 16 state bytes), its counts are
-bytes per block.
+filled with 12, the codec's fixed precision; the 4x8 encoder reads the
+packed rows.  Its stream is plain ``(B, W) uint8`` (the bytes after the
+16 state bytes), its counts are bytes per block.
 
 The adaptive range-coder engines (``ops/arith_vmem.py``,
 ``ops/rc_vmem.py``) take what the JAX package's batch functions take
@@ -231,12 +231,20 @@ def streams8_from_reference(states, stream, device, counts=None):
 
 def streams8_to_reference(states: torch.Tensor, stream: torch.Tensor,
                           counts: torch.Tensor):
-    """The 4x8 encoder's outputs -> (states (B,4) u32, bytes (B,cap')
-    u8, counts (B,) i32) numpy arrays; only the columns some block uses
-    are copied off the device (cap' = max count, at least 1)."""
+    """The 4x8 encoder's outputs (each block's stream in forward order
+    at the END of its row, ``rans8_vmem.rans8_enc``) -> the reference's
+    (states (B,4) u32, bytes (B,cap') u8, counts (B,) i32) numpy arrays,
+    each block's stream at the START of its row, zeros past it.  Only
+    the last cap' = max count (at least 1) columns are copied off the
+    device."""
     cn = counts.cpu().numpy().astype(np.int32)
     cap = max(int(cn.max()) if len(cn) else 0, 1)
-    by = stream[:, :cap].contiguous().cpu().numpy()
+    W = stream.shape[1]
+    tail = stream[:, W - cap:].contiguous().cpu().numpy()
+    i = np.arange(cap)[None, :]
+    src = np.minimum(cap - cn[:, None] + i, cap - 1)
+    by = np.where(i < cn[:, None], np.take_along_axis(tail, src, axis=1),
+                  np.uint8(0))
     st = states.contiguous().cpu().numpy().view(np.uint32)
     return st, by, cn
 

@@ -29,9 +29,8 @@ def _enc8(blocks, alpha, packed, order: int, device):
     from . import convert, rans8_vmem
     dev = check_device(device)
     blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
-    tables = convert.tables8_from_reference(alpha, packed, dev)
-    st, by, cnt = rans8_vmem.enc_batch(
-        convert._tensor(blocks, dev), tables, order)
+    st, by, cnt = rans8_vmem.enc_batch(convert._tensor(blocks, dev), alpha,
+                                       packed, order)
     return convert.streams8_to_reference(st, by, cnt)
 
 

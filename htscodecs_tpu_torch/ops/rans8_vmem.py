@@ -3,18 +3,18 @@ surrounds them.
 
 Counterpart of ``htscodecs_tpu/ops/rans8_vmem.py``.  The 4x16 engine's
 design (``ops/rans_vmem.py``: one 4-thread group per block, ordered
-stream claims by warp ballot, monotone int16 base rows) with the
-``rANS_byte.h`` parameters: L = 1 << 23, the table precision fixed at
-12 bits, byte renormalisation with up to TWO bytes emitted or consumed
-per state and step.  Byte order inside a step is state 0..3 on decode
-(processing lane 0..3 on encode), a state's two bytes adjacent, low
-byte first on encode; the forward stream is the full reverse of the
-emission sequence.
+stream claims by warp ballot) with the ``rANS_byte.h`` parameters: L =
+1 << 23, the table precision fixed at 12 bits, byte renormalisation
+with up to TWO bytes emitted or consumed per state and step.  Byte
+order inside a step is state 0..3 on decode (processing lane 0..3 on
+encode), a state's two bytes adjacent, low byte first on encode; the
+forward stream is the full reverse of the emission sequence.
 
-4x8 table rows normalise to 4095 slots (a quirk of the C reference), so
-the successor column of the base rows holds the PER-ROW total
-(``_b16_fill_rowtot``), not ``1 << 12``; ``freq = base[sym+1] -
-base[sym]`` holds as in the 4x16 tables.
+The encoder reads packed rows, as the 4x16 encoder does.  The decoder
+reads monotone int16 base rows; 4x8 table rows normalise to 4095 slots
+(a quirk of the C reference), so their successor column holds the
+PER-ROW total (``_b16_fill_rowtot``), not ``1 << 12``, and ``freq =
+base[sym+1] - base[sym]`` holds as in the 4x16 tables.
 
 ``rans8_dec``  csrc/rans8_dec.cu
     replaces ``_build_dec_kernel`` / ``_dec_vmem8`` (decode, order 0
@@ -29,10 +29,14 @@ base[sym]`` holds as in the 4x16 tables.
     per block) spread a batch over all SMs.
 ``rans8_enc``  csrc/rans8_enc.cu
     replaces ``_build_enc_kernel`` / ``_enc_vmem8`` and its stitch
-    sort.  Looks (start, freq) up in the block's base rows itself from
-    the dense symbols and contexts in processing order
-    (``rans_vmem.enc_inputs``).  Bound by memory traffic (2 bytes per
-    symbol in, the emitted bytes out).
+    sort.  Reads the raw block bytes and the packed ``base << 13 |
+    freq`` rows (so a row's total never enters it), on the 4x16
+    encoder's layout (``rans_vmem.rans16_enc_packed``): entries beside
+    the reciprocals of their freqs in shared memory where they fit
+    (``rans_vmem.enc_tables_in_smem``), the bytes staged in reverse by
+    ``cp.async``, the lookup pipelined ahead of the chain, and the bytes
+    written in forward order at the END of each block's row.  Bound by
+    operations; the chain of one state per thread sets the time.
 
 Each wrapper uses its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  States are
@@ -44,16 +48,15 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
-from . import rans_v2, rans_vmem
+from . import convert, rans_v2, rans_vmem
 from .convert import Tables
 # the 4x8 decoder keeps its tables and indexes its rows as the 4x16
 # decoder does (the same shared-memory rule and slot index of 64-slot
 # steps), with its own ring of STAGE bytes per block
 from .rans_vmem import (IDX_N, LAUNCHES, TABLES_SMEM_MAX, _M32,  # noqa: F401
-                        _enc_active, _require, _require_enc_inputs,
-                        _reverse_emitted, _slot_lookup, _stream,
-                        _table_entries, _to_i32_bits, slot_index,
-                        slot_lookup_indexed)
+                        _aligned, _enc_active, _require, _slot_lookup,
+                        _stream, _to_i32_bits, enc_tables_in_smem,
+                        slot_index, slot_lookup_indexed)
 
 RANS8_L = 1 << 23
 SHIFT = 12
@@ -213,58 +216,79 @@ def _rans8_dec_plain(states, stream, counts, tables: Tables, N: int,
 # ---------------------------------------------------------------------------
 # rans8_enc
 
-def rans8_enc(sym, ctx, tables: Tables, K: int, geom: int, order: int):
-    """Encode B blocks.
+def rans8_enc(blocks, alpha, packed, order: int):
+    """Encode B blocks of N bytes with packed rows.
 
-    sym, ctx (B, 4K) uint8: dense symbol and context per symbol in
-    processing order (step-major, processing lane minor;
-    ``rans_vmem.enc_inputs`` makes them); the entry read is
-    ``ctx * A + sym`` clamped into the block's table; tables with per-row totals in the successor
-    column (``convert.tables8_from_reference``); ``tables.shift`` is
-    not read: the precision is 12 bits.  Returns (states (B,4) int32 in
-    state order, bytes (B, 8K) uint8 in forward order, counts (B,)
-    int32).  Bytes past a block's count are unspecified.
-    """
-    _require_enc_inputs("rans8_enc", sym, ctx, tables, K, geom, order)
-    B = sym.shape[0]
-    A = tables.alpha.shape[1]
-    dev = sym.device
+    blocks (B,N) uint8 raw bytes (order 1: N >= 4), alpha (B,A) uint8
+    (A <= 255), packed (B, A if order else 1, A) int32 ``base << 13 |
+    freq`` (a one-symbol row's freq may be 4096).  A byte maps to the
+    number of alphabet entries below it (``rans_v2._densify``); a dense
+    symbol or context past the alphabet reads freq 0 and start 0, and a
+    freq of 0 divides by 1 (the JAX engine divides by zero there, the
+    one case in which the two differ).  Returns (states (B,4) int32 in state order,
+    bytes (B, 8K) uint8, counts (B,) int32): block b's stream in forward
+    order is the LAST counts[b] bytes of its row
+    (``convert.streams8_to_reference`` reads it); the bytes before them
+    are unspecified."""
+    B, N = blocks.shape
+    A = alpha.shape[1]
+    dev = blocks.device
+    _require(blocks, "blocks", torch.uint8, (B, N), dev)
+    _require(alpha, "alpha", torch.uint8, (B, A), dev)
+    _require(packed, "packed", torch.int32, (B, A if order else 1, A), dev)
+    if order not in (0, 1) or N < (4 if order else 1) or not 1 <= A <= 255:
+        raise ValueError("rans8_enc: bad geometry")
     if dev.type == "cpu":
-        return _rans8_enc_plain(sym, ctx, tables, K, geom, order)
+        return _rans8_enc_plain(blocks, alpha, packed, order)
+    K, _geom = rans_vmem._enc_geometry(N, order)
     cap = 8 * K
+    blocks = _aligned(blocks)
     states = torch.empty((B, 4), dtype=torch.int32, device=dev)
     out = torch.empty((B, cap), dtype=torch.uint8, device=dev)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = cuda_build.get_lib().rans8_enc_launch(
-            sym.data_ptr(), ctx.data_ptr(), tables.bases.data_ptr(),
+            blocks.data_ptr(), alpha.data_ptr(), packed.data_ptr(),
             states.data_ptr(), out.data_ptr(), counts.data_ptr(),
-            B, K, A, geom, cap, order, _stream(sym))
+            B, N, A, order, cap, int(enc_tables_in_smem(A, order)),
+            _stream(blocks))
     cuda_build.check(err, "rans8_enc")
     LAUNCHES["rans8_enc"] += 1
     return states, out, counts
 
 
-def _rans8_enc_plain(sym, ctx, tables: Tables, K: int, geom: int, order: int):
-    """Plain PyTorch version of rans8_enc (same arguments)."""
-    B = sym.shape[0]
-    dev = sym.device
+def _rans8_enc_plain(blocks, alpha, packed, order: int):
+    """Plain PyTorch version of rans8_enc (same arguments); alphabets of
+    256 are taken too (the comparison grid encodes its widest tables
+    here)."""
+    B, N = blocks.shape
+    A = alpha.shape[1]
+    dev = blocks.device
     i64 = torch.int64
+    dense = rans_v2._densify(blocks, alpha)
+    sym_p, ctx_p, _valid, K, geom = rans_v2._enc_proc_inputs(dense, N, order)
+    sym = sym_p.permute(2, 0, 1).to(i64)                    # (B,K,4)
+    ctx = ctx_p.permute(2, 0, 1).to(i64)
+    pk = packed.reshape(B, -1).to(i64)
+    A2 = pk.shape[1]
     cap = 8 * K
-    entries = _table_entries(sym, ctx, tables, K, order)
     xmult = (RANS8_L >> SHIFT) << 8
     lanes = torch.arange(4, device=dev)
     X = torch.full((B, 4), RANS8_L, dtype=i64, device=dev)
-    # emission-order buffer with one spill column for non-emitting lanes
+    # forward-order buffer with one spill column for non-emitting lanes
     buf = torch.zeros((B, cap + 1), dtype=i64, device=dev)
-    n = torch.zeros((B,), dtype=i64, device=dev)
     spill = torch.full((B, 4), cap, dtype=i64, device=dev)
+    n = torch.zeros((B,), dtype=i64, device=dev)
     for s in range(K):
         ok = _enc_active(lanes, s, geom, order)
-        start, nxt = entries(s)
-        f = (nxt - start) & _M32
-        start = start & _M32
-        x_max = (xmult * f) & _M32
+        sy, cx = sym[:, s, :], ctx[:, s, :]
+        inside = (sy < A) & (cx < A)
+        key = torch.where(inside, sy + (cx * A if order else 0),
+                          torch.zeros_like(sy))
+        e = torch.where(inside, pk.gather(1, key.clamp(max=A2 - 1)),
+                        torch.zeros_like(sy))
+        start, f = e >> rans_v2.PACK_SHIFT, e & rans_v2.PACK_MASK
+        x_max = xmult * f
         # up to two bytes, low byte first; the second only if the state
         # is still too large after the first
         emit1 = ok & (X >= x_max)
@@ -273,26 +297,33 @@ def _rans8_enc_plain(sym, ctx, tables: Tables, K: int, geom: int, order: int):
         x2 = torch.where(emit2, x1 >> 8, x1)
         c = emit1.to(i64) + emit2.to(i64)
         rank = n[:, None] + c.cumsum(dim=1) - c
-        buf.scatter_(1, torch.where(emit1, rank, spill), X & 0xFF)
-        buf.scatter_(1, torch.where(emit2, rank + 1, spill), x1 & 0xFF)
+        buf.scatter_(1, torch.where(emit1, cap - 1 - rank, spill), X & 0xFF)
+        buf.scatter_(1, torch.where(emit2, cap - 2 - rank, spill), x1 & 0xFF)
         fs = torch.where(f > 0, f, torch.ones_like(f))
         qq = x2 // fs
         xn = ((qq << SHIFT) + (x2 - qq * fs) + start) & _M32
         X = torch.where(ok, xn, X)
         n = n + c.sum(dim=1)
-    fwd = _reverse_emitted(buf[:, :cap], n)
-    return (_to_i32_bits(X.flip(1)), fwd.to(torch.uint8), n.to(torch.int32))
+    return (_to_i32_bits(X.flip(1)), buf[:, :cap].to(torch.uint8),
+            n.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
 # What surrounds the kernels (tensor in, tensor out)
 
-def enc_batch(blocks: torch.Tensor, tables: Tables, order: int):
+def enc_batch(blocks: torch.Tensor, alpha, packed, order: int):
     """Encode a batch of equal-length blocks: counterpart of
-    ``_enc_vmem8``.  blocks (B,N) uint8.  Returns (states (B,4) int32,
-    bytes (B, 8K) uint8 forward, counts (B,) int32)."""
-    sym, ctx, K, geom = rans_vmem.enc_inputs(blocks, tables, order)
-    return rans8_enc(sym, ctx, tables, K, geom, order)
+    ``_enc_vmem8``.  blocks (B,N) uint8 on the engine's device; alpha
+    (B,A) and packed (B,A,A) (order 0: (B,A)) as numpy arrays or
+    tensors, moved there as they are.  Returns ``rans8_enc``'s (states,
+    bytes with each stream at the end of its row, counts)."""
+    dev = blocks.device
+    B = blocks.shape[0]
+    al = convert.as_tensor(alpha, torch.uint8, dev)
+    A = al.shape[1]
+    pk = convert.as_tensor(packed, torch.int32, dev).view(
+        B, A if order else 1, A)
+    return rans8_enc(blocks, al, pk, order)
 
 
 def dec_batch(states, stream, counts, tables: Tables, N: int, order: int):

@@ -383,9 +383,10 @@ def _slot_lookup(rows, m, packed: bool = False):
 # ---------------------------------------------------------------------------
 # the encoder: rans16_enc_packed
 
-ENC_THREADS = 32     # threads per encode CTA (csrc/rans16_enc_packed.cu)
-# ring and byte-table space per block (csrc/rans16_enc_packed.cu: RING_BLK,
-# LUT_STRIDE: the rings and tables padded against bank conflicts)
+ENC_THREADS = 32     # threads per encode CTA (csrc/rans_group.cuh)
+# ring and byte-table space per block (csrc/rans_group.cuh: RING_BLK,
+# LUT_STRIDE: the rings and tables padded against bank conflicts), the
+# same for both encoders (rans16_enc_packed and rans8_vmem.rans8_enc)
 ENC_RING_BLK = 4 * (128 + 16)
 ENC_LUT_STRIDE = 260
 # shared memory of one encode CTA up to which its entries go there (an
@@ -394,8 +395,8 @@ ENC_TABLES_SMEM_MAX = 160 * 1024
 
 
 def _enc_smem(A2: int, tables: bool) -> int:
-    """Shared memory of one encode CTA (csrc/rans16_enc_packed.cu:
-    rans16_enc_smem): the byte rings and byte tables, then with
+    """Shared memory of one encode CTA (csrc/rans_group.cuh: enc_smem):
+    the byte rings and byte tables, then with
     ``tables`` the A2 + 1 entries of 8 bytes per block."""
     bpc = ENC_THREADS // 4
     return (bpc * (ENC_RING_BLK + ENC_LUT_STRIDE)
@@ -403,8 +404,9 @@ def _enc_smem(A2: int, tables: bool) -> int:
 
 
 def enc_tables_in_smem(A: int, order: int) -> bool:
-    """Whether the encoder keeps its entries in shared memory (always at
-    order 0); wider tables are read from global memory."""
+    """Whether an encoder (this module's and ``rans8_vmem.rans8_enc``)
+    keeps its entries in shared memory (always at order 0); wider tables
+    are read from global memory."""
     return order == 0 or _enc_smem(A * A, True) <= ENC_TABLES_SMEM_MAX
 
 
@@ -541,66 +543,3 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 def _to_i16_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^16) -> int16 with the same low 16 bits."""
     return torch.where(x >= (1 << 15), x - (1 << 16), x).to(torch.int16)
-
-
-# ---------------------------------------------------------------------------
-# What the 4x8 engine (ops/rans8_vmem.py) takes from the first 4x16
-# encoders: its inputs in processing order, the lookup of an entry in
-# base rows, and the reversal of an emission-order buffer.
-
-def _require_enc_inputs(name, sym, ctx, tables: Tables, K, geom, order):
-    """Argument checks of an encoder that takes its symbols and contexts
-    in processing order (rans8_enc)."""
-    B = sym.shape[0]
-    A = tables.alpha.shape[1]
-    dev = sym.device
-    _require(sym, "sym", torch.uint8, (B, 4 * K), dev)
-    _require(ctx, "ctx", torch.uint8, (B, 4 * K), dev)
-    _require(tables.bases, "bases", torch.int16,
-             (B, A if order == 1 else 1, A + 1), dev)
-    _require(tables.shift, "shift", torch.int32, (B,), dev)
-    if order not in (0, 1) or K < 1 or not 0 <= geom <= 3:
-        raise ValueError(f"{name}: bad geometry")
-
-
-def enc_inputs(blocks: torch.Tensor, tables: Tables, order: int):
-    """Dense symbol and context per symbol in processing order, (B, 4K)
-    uint8 each, with K and geom (``rans_v2._enc_proc_inputs`` on the
-    dense block; the (K,4,B) views of block-major storage come back as
-    (B, 4K) without a copy)."""
-    B, N = blocks.shape
-    dense = rans_v2._densify(blocks, tables.alpha)
-    sym_p, ctx_p, _valid, K, geom = rans_v2._enc_proc_inputs(dense, N, order)
-    return (sym_p.permute(2, 0, 1).reshape(B, 4 * K),
-            ctx_p.permute(2, 0, 1).reshape(B, 4 * K), K, geom)
-
-
-def _table_entries(sym, ctx, tables: Tables, K: int, order: int):
-    """fetch(s) -> ((B,4) int64 base of the entry, base of its
-    successor), the flat index ``ctx * A + sym`` clamped into the
-    block's table (csrc/rans_group.cuh: table_entry)."""
-    B = sym.shape[0]
-    A = tables.alpha.shape[1]
-    Ac = A if order == 1 else 1
-    rows = tables.bases.to(torch.int64).reshape(B, Ac * (A + 1))
-    syl = sym.to(torch.int64).view(B, K, 4)
-    cxl = ctx.to(torch.int64).view(B, K, 4)
-
-    def fetch(s):
-        idx = syl[:, s, :]
-        if order == 1:
-            idx = idx + cxl[:, s, :] * A
-        idx = idx.clamp(max=Ac * A - 1)
-        at = (idx // A) * (A + 1) + idx % A
-        return rows.gather(1, at), rows.gather(1, at + 1)
-    return fetch
-
-
-def _reverse_emitted(buf, n):
-    """Forward order = reverse of emission order: out[b, i] =
-    buf[b, n[b]-1-i] for i < n[b], 0 past it."""
-    cap = buf.shape[1]
-    i = torch.arange(cap, device=buf.device)[None, :]
-    src = (n[:, None] - 1 - i).clamp(min=0)
-    return torch.where(i < n[:, None], buf.gather(1, src),
-                       torch.zeros_like(src))

@@ -132,6 +132,9 @@ def test_tables8_round_trip(order):
 
 
 def test_streams8_round_trip():
+    """The reference layout in (streams at the start of each row), the
+    4x8 encoder's layout out (streams at the end of each row, as
+    rans8_vmem.rans8_enc writes them) -> the reference layout again."""
     rng = np.random.default_rng(9)
     B, W = 6, 41
     states = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint64).astype(np.uint32)
@@ -139,14 +142,21 @@ def test_streams8_round_trip():
     stream = rng.integers(0, 256, size=(B, W)).astype(np.uint8)
     counts = rng.integers(1, W + 1, size=B).astype(np.int32)
     counts[2] = W
+    counts[3] = 0
     st, by, cn = convert.streams8_from_reference(states, stream, "cpu", counts)
     assert st.dtype == torch.int32 and by.dtype == torch.uint8
     assert cn.dtype == torch.int32 and int(st[0, 0]) < 0
-    s2, b2, c2 = convert.streams8_to_reference(st, by, cn)
+    assert torch.equal(by, torch.from_numpy(stream))
+    cap = W + 7
+    suffix = torch.from_numpy(rng.integers(0, 256, size=(B, cap)).astype(np.uint8))
+    for b in range(B):
+        suffix[b, cap - counts[b]:] = torch.from_numpy(stream[b, :counts[b]])
+    s2, b2, c2 = convert.streams8_to_reference(st, suffix, cn)
     assert s2.dtype == np.uint32 and b2.dtype == np.uint8
     np.testing.assert_array_equal(s2, states)
     np.testing.assert_array_equal(c2, counts)
-    np.testing.assert_array_equal(b2, stream[:, :W])
+    live = np.arange(W)[None, :] < counts[:, None]
+    np.testing.assert_array_equal(b2, np.where(live, stream, 0))
     _st, _by, cn = convert.streams8_from_reference(states, stream, "cpu")
     assert cn.tolist() == [W] * B
 
