@@ -64,11 +64,22 @@ What it does, in order (any failure exits non-zero):
    quality batch at order 0 and 1 and on the wide batch at order 1; then
    ``batch.fqz_compress_blocks(engine="device")`` on 192 jobs of 10000
    records x 150 quality values, decoded back through
-   ``fqz_decompress_blocks``.  Every block must round-trip, a spread
-   sample of streams must be byte-identical to the host coder's, the
+   ``fqz_decompress_blocks``; then the name codec,
+   ``tok3.encode_names`` / ``decode_names``, on 64 blocks of 10000
+   names (the CRAM default slice) per style, Illumina and SRA
+   (``testdata.synth_names``), at level 9 with the descriptor encode on
+   engine "host" and on engine "device" (every (descriptor, candidate
+   method) payload an entropy job of the batch layer's groups, so the
+   one 4x16 encoder runs; its streams must equal the host engine's)
+   and at level 19 (arith descriptors, the host loop: no kernel may
+   launch), and every rANS descriptor stream of the Illumina blocks
+   through ``uncompress_blocks(engine="device")``, equal to the host
+   decode.  Every block must round-trip, a spread
+   sample of streams must be byte-identical to the host coder's,
    and exactly the kernels of each path must have been launched;
-4. profiles one more pass of each order-1 main path and of the order-9
-   transform path (host seconds by function), then, at the shapes the
+4. profiles one more pass of each order-1 main path, of the order-9
+   transform path and of one "device" tok3 encode (host seconds by
+   function), then, at the shapes the
    main path gave each kernel,
    holds it against its plain version once more and times it (CUDA
    events, warm, median of 5) beside its roofline bound, its plain
@@ -76,7 +87,10 @@ What it does, in order (any failure exits non-zero):
    length cut to 8192), and the whole 4x8 encode (``rans8_vmem.enc_batch``);
    the 4x16 encoder and the decoder's packed entry
    also on the rans_pallas path's largest shift group and its second
-   one; times the device table build, arith_dec at each arith main-path
+   one, the 4x16 encoder and decoder at the stripe lanes of order 9 and
+   at the three descriptor groups with the most bytes of one Illumina
+   name block (the ``kernels`` line's ``transform_shapes`` and
+   ``tok3_shapes``); times the device table build, arith_dec at each arith main-path
    shape (with
    its default pool and the blocks whose contexts overflow it),
    arith_enc at 1 to 32 blocks per warp at each arith main-path shape,
@@ -103,6 +117,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -121,7 +136,7 @@ if not torch.cuda.is_available():
 
 from htscodecs_tpu_torch import cuda_build, native  # noqa: E402
 from htscodecs_tpu_torch.models import (arith, batch, fqz,  # noqa: E402
-                                        rans4x8, rans4x16)
+                                        rans4x8, rans4x16, tok3)
 from htscodecs_tpu_torch.ops import (arith_vmem, convert,  # noqa: E402
                                      rans8_vmem, rans_pallas, rans_v2,
                                      rans_vmem, rc_vmem, tables_v2)
@@ -834,6 +849,167 @@ def transform_kernel_checks(blocks, launches):
             + f" ({time.perf_counter() - t:.1f} s)")
         res += es
     return res
+
+
+# the name codec: blocks of the CRAM default slice of 10000 names, in
+# two styles, and the kernels its descriptor encode may reach
+TOK3_STYLES = ("illumina", "sra")
+TOK3_NAMES = 10000
+TOK3_PAIR = ("rans16_enc_packed", "rans16_dec")
+
+
+def tok3_blocks(nblk):
+    return {style: [testdata.synth_names(TOK3_NAMES, style,
+                                         seed=1000 * k + b)
+                    for b in range(nblk)]
+            for k, style in enumerate(TOK3_STYLES)}
+
+
+def counted(fn, items):
+    """fn over every item, the launch counts and entropy jobs set to 0
+    just before and read just after: (outputs, wall s, launches,
+    entropy jobs by route)."""
+    rans_vmem.reset_launches()
+    reset_entropy_jobs()
+    reset_routes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(x) for x in items]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (outs, wall, dict(rans_vmem.LAUNCHES),
+            {k: dict(v) for k, v in batch.ENTROPY_JOBS.items()})
+
+
+def only_kernels(name, launches, allowed, need=()):
+    for k, v in launches.items():
+        if v and k not in allowed:
+            fail(f"{name}: kernel {k} launched {v} times outside {allowed}")
+    for k in need:
+        if launches[k] < 1:
+            fail(f"{name}: kernel {k} was not launched")
+
+
+def tok3_rates(wall, nbytes, nnames):
+    return {"s": wall, "names_per_s": nnames / wall,
+            "MBps": nbytes / wall / 1e6}
+
+
+def run_tok3_paths(blocks):
+    """tok3.encode_names -> decode_names with the defaults but the
+    engine, per style: level 9 (rANS descriptors) with engine "host" and
+    "device", level 19 (arith descriptors, level 9 of the arith backend)
+    with the default engine.  Every block round-trips, the "device"
+    streams equal the "host" streams byte for byte, "device" launches
+    the one 4x16 encoder, no run launches a kernel outside the 4x16
+    pair, and neither the "host" encode nor anything at level 19
+    launches one.  Returns the rates, ratios, entropy jobs and launches
+    by run, and the level-9 streams."""
+    res = {}
+    streams9 = {}
+    for style, blks in blocks.items():
+        nbytes = sum(len(b) for b in blks)
+        nnames = len(blks) * TOK3_NAMES
+        want = [b.replace(b"\n", b"\x00") for b in blks]
+        for level, use_arith, engines in ((9, False, ("host", "device")),
+                                          (19, True, (None,))):
+            first = None
+            for engine in engines:
+                run = f"{style} level {level} encode {engine or 'default'}"
+                name = f"tok3 {run}"
+                streams, wall, launches, jobs = counted(functools.partial(
+                    tok3.encode_names, level=9, use_arith=use_arith,
+                    engine=engine), blks)
+                if engine == "device":
+                    only_kernels(name, launches, TOK3_PAIR[:1], TOK3_PAIR[:1])
+                else:
+                    only_kernels(name, launches, ())
+                if first is None:
+                    first = streams
+                elif streams != first:
+                    bad = next(k for k in range(len(blks))
+                               if streams[k] != first[k])
+                    fail(f"{name}: block {bad}'s stream differs from the "
+                         "host engine's")
+                res[run] = dict(tok3_rates(wall, nbytes, nnames),
+                                ratio=sum(len(x) for x in streams) / nbytes,
+                                entropy_jobs=jobs["encode"], launches=launches)
+                log(f"main path {name}: {res[run]}")
+            run = f"{style} level {level} decode"
+            name = f"tok3 {run}"
+            outs, wall, launches, jobs = counted(tok3.decode_names, first)
+            only_kernels(name, launches, () if use_arith else TOK3_PAIR[1:])
+            for k, (o, w) in enumerate(zip(outs, want)):
+                if o != w:
+                    fail(f"{name}: block {k} did not round-trip")
+            res[run] = dict(tok3_rates(wall, nbytes, nnames),
+                            entropy_jobs=jobs["decode"], launches=launches)
+            log(f"main path {name}: {res[run]}; {len(blks)} blocks of "
+                f"{TOK3_NAMES} names round-trip")
+            if not use_arith:
+                streams9[style] = first
+    return res, streams9
+
+
+def descriptor_groups(blk, level=9):
+    """The (length, order) groups of one block's descriptor entropy
+    jobs, as ``_encode_entropy_jobs`` forms them, that reach the 4x16
+    encoder (jobs of 32 bytes or more, alphabets of at most 96 symbols
+    with byte 0), most bytes first: ([((B, N) uint8, order)], the
+    block's number of jobs, its number of groups)."""
+    desc, order, _n, _ls = tok3._descriptors(blk)
+    jobs, _cands = tok3._descriptor_jobs(desc, order, level)
+    groups = {}
+    for data, o in jobs:
+        groups.setdefault((len(data), o), []).append(data)
+    out = []
+    for (n, o), rows in groups.items():
+        arr = np.stack(rows)
+        if n >= 32 and max(len(np.union1d(r, [0])) for r in arr) <= 96:
+            out.append((arr, o))
+    out.sort(key=lambda g: -g[0].size)
+    return out, len(jobs), len(groups)
+
+
+def tok3_kernel_checks(blk, streams, enc_launches):
+    """The 4x16 encoder and decoder at the shapes tok3 gives them: the
+    three descriptor groups of one Illumina block with the most bytes,
+    each kernel against its plain version (tolerance 0) and timed; then
+    every rANS descriptor stream of the level-9 blocks through
+    ``uncompress_blocks(engine="device")``, the counts set to 0 just
+    before, equal to the host decode.  Returns the entries of
+    kernel_times and the decode's summary."""
+    parts = [tok3._parse_container(memoryview(s)) for s in streams]
+    descs = [bytes(s[p2:p2 + clen]) for s, part in zip(streams, parts)
+             for _i, p2, clen in part[0]]
+    outs, wall, launches, jobs = counted(
+        lambda d: batch.uncompress_blocks(d, engine="device"), [descs])
+    only_kernels("tok3 descriptor decode engine device", launches,
+                 TOK3_PAIR[1:], TOK3_PAIR[1:])
+    if outs[0] != batch.uncompress_blocks(descs, engine="host"):
+        fail("tok3 descriptor streams: the device decode differs from the "
+             "host decode")
+    dec = {"streams": len(descs), "bytes_out": sum(len(o) for o in outs[0]),
+           "s": wall, "entropy_jobs": jobs["decode"], "launches": launches}
+    log(f"tok3 descriptor streams of {len(streams)} Illumina blocks, "
+        f"uncompress_blocks(engine='device') == host decode: {dec}")
+    groups, njobs, ngroups = descriptor_groups(blk)
+    log(f"tok3 Illumina block 0: {njobs} entropy jobs in {ngroups} (length, "
+        f"order) groups, {len(groups)} of them reach the encoder: "
+        f"{[(g.shape, o) for g, o in groups]}")
+    counts = {"rans16_enc_packed": enc_launches,
+              "rans16_dec": launches["rans16_dec"]}
+    res = []
+    for arr, o in groups[:3]:
+        t = time.perf_counter()
+        es = kernel_times(arr, o, {"rans4x16": counts})
+        log("tok3 descriptor group: "
+            + "; ".join(f"{e['name']} {e['ms']:.3f} ms == plain "
+                        f"({e['plain_ms']:.0f} ms) at {e['shape']}"
+                        for e in es)
+            + f" ({time.perf_counter() - t:.1f} s)")
+        res += es
+    return res, dec
 
 
 SWEEP_B = (4, 16, 64, 128, 256, 512, 1024)
@@ -1828,6 +2004,22 @@ def main() -> None:
     log(f"generated {len(jobs)} fqz jobs in {time.perf_counter() - t:.1f} s")
     launches["fqz"] = run_fqz_path(jobs, 16)
 
+    # tokenise_name3: 64 blocks of 10000 names per style (fewer with a
+    # smaller --blocks), the descriptor encode on both engines
+    t = time.perf_counter()
+    names = tok3_blocks(max(2, min(64, B // 64)))
+    log(f"generated {sum(map(len, names.values()))} name blocks of "
+        f"{TOK3_NAMES} names in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tok3_paths, tok3_streams = run_tok3_paths(names)
+    tok3_entries, tok3_dec = tok3_kernel_checks(
+        names["illumina"][0], tok3_streams["illumina"],
+        tok3_paths["illumina level 9 encode device"]["launches"][
+            "rans16_enc_packed"])
+    tok3_paths["descriptor_decode_engine_device"] = tok3_dec
+    del tok3_streams
+    log(f"tok3 phase: {time.perf_counter() - t:.1f} s")
+
     profile_main_path(R4X16, q4, 1)
     profile_main_path(R4X8, q4, 1)
     profile_main_path(ARITH, q4, 1)
@@ -1838,6 +2030,10 @@ def main() -> None:
     del streams9
     profile_call("fqz_compress_blocks", batch.fqz_compress_blocks, jobs,
                  "device")
+    profile_call("tok3.encode_names level 9 engine=device",
+                 tok3.encode_names, names["illumina"][0], 9, False, False,
+                 "device")
+    del names
     entries = kernel_times(q4, 1, launches)
     entries += kernel_times_packed(q4, groups, launches["packed"], entries)
     del groups
@@ -1852,15 +2048,18 @@ def main() -> None:
     del wide, q4, shapes
     entries += kernel_times_rc(jobs, launches["fqz"])
     del jobs
-    # the transform path's shapes go beside the plain 4x16 shape
+    # the transform path's and tok3's shapes go beside the plain 4x16 shape
     for e in entries:
-        extra = [{k: t[k] for k in ("shape", "launches", "max_abs_err", "ms",
-                                    "plain_ms", "bound_ms", "bound_by")}
-                 for t in transform_entries if t["name"] == e["name"]]
-        if extra:
-            e["transform_shapes"] = extra
-            e["max_abs_err"] = max([e["max_abs_err"]]
-                                   + [t["max_abs_err"] for t in extra])
+        for key, more in (("transform_shapes", transform_entries),
+                          ("tok3_shapes", tok3_entries)):
+            extra = [{k: t[k] for k in ("shape", "launches", "max_abs_err",
+                                        "ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+                     for t in more if t["name"] == e["name"]]
+            if extra:
+                e[key] = extra
+                e["max_abs_err"] = max([e["max_abs_err"]]
+                                       + [t["max_abs_err"] for t in extra])
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.3f} ms at {e['shape']} "
             f"(bound {e['bound_ms']:.3f} ms by {e['bound_by']}, library "
@@ -1885,6 +2084,7 @@ def main() -> None:
         f"per CTA: {dsweep}")
     print(json.dumps({"dec_sweep_ms": dsweep}), flush=True)
     print(json.dumps({"transform_paths": transform}), flush=True)
+    print(json.dumps({"tok3_paths": tok3_paths}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

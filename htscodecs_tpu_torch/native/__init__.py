@@ -3,8 +3,8 @@
 Compiles ``hostkernels.c`` with the system compiler at first use into
 the package's ``_build/`` directory (keyed by content hash, so a stale
 library is never loaded) and exposes numpy-friendly wrappers for the
-functions the batched rANS 4x16 and 4x8 paths and the adaptive codecs
-(arith_dynamic, fqzcomp_qual) call.  Without a compiler
+functions the batched rANS 4x16 and 4x8 paths, the adaptive codecs
+(arith_dynamic, fqzcomp_qual) and the name codec (tokenise_name3) call.  Without a compiler
 ``available()`` is False and the callers use the pure-Python oracle
 engines.
 
@@ -115,6 +115,10 @@ def _declare(lib) -> None:
                "arith_enc_o1_rle", "arith_dec_o0", "arith_dec_o1",
                "arith_dec_o0_rle", "arith_dec_o1_rle"):
         _sig(getattr(lib, nm), _i64, [_u8p, _i64, _u8p, _i64])
+    _sig(lib.tok3_tokenize, _i64,
+         [_u8p, _i64p, _i64p, _i64, _u8p, _i64, _i64p, _i32p])
+    _sig(lib.tok3_detokenize, _i64,
+         [_u8p, _i64p, _i64p, _i32, _i64, _u8p, _i64])
     _sig(lib.fqz_stats1, _i64,
          [_u8p, _i64, _i64p, _i64p, _i64, _i64, _u8p, _i64p, _i64p, _i64p,
           _i64p])
@@ -351,6 +355,69 @@ def serialize_o0_batch(freqs: np.ndarray):
     if r < 0:
         return None
     return _split_arena(arena, offs)
+
+
+# ---------------------------------------------------------------------
+# tokenise_name3: the name tokeniser and the token replay
+
+MAX_TBLOCKS = 128 * 16
+
+
+def tok3_tokenize(blk: bytes, starts: np.ndarray, lens: np.ndarray):
+    """Native name tokeniser.  Returns ({tid: descriptor bytes},
+    max_tok) or None (unsupported input -> Python path)."""
+    lib = get_lib()
+    a, ap = _u8(np.frombuffer(blk, dtype=np.uint8))
+    st = np.ascontiguousarray(starts, np.int64)
+    ln = np.ascontiguousarray(lens, np.int64)
+    nreads = len(st)
+    dlens = np.zeros(MAX_TBLOCKS, np.int64)
+    mt = _i32(0)
+    cap = 2 * len(a) + 24 * nreads + 65536
+    for _ in range(2):
+        arena = np.empty(cap, np.uint8)
+        r = lib.tok3_tokenize(
+            ap, st.ctypes.data_as(_i64p), ln.ctypes.data_as(_i64p), nreads,
+            arena.ctypes.data_as(_u8p), cap, dlens.ctypes.data_as(_i64p),
+            ctypes.byref(mt))
+        if r >= 0:
+            desc = {}
+            off = 0
+            for t in range(MAX_TBLOCKS):
+                if dlens[t]:
+                    desc[t] = arena[off:off + dlens[t]].tobytes()
+                    off += dlens[t]
+            return desc, int(mt.value)
+        if r <= -10:                 # arena too small: exact size given
+            cap = int(-r - 10)
+            continue
+        return None
+    return None
+
+
+def tok3_detokenize(desc: dict, max_tok: int, nreads: int, out_cap: int):
+    """Native token replay.  desc: {tid: decompressed bytes}.
+    Returns the NUL-separated names blob or None (corrupt / Python
+    path)."""
+    lib = get_lib()
+    doffs = np.full(MAX_TBLOCKS, 0, np.int64)
+    dls = np.full(MAX_TBLOCKS, -1, np.int64)
+    total = sum(len(b) for b in desc.values())
+    arena = np.empty(max(total, 1), np.uint8)
+    off = 0
+    for t, b in desc.items():
+        doffs[t] = off
+        dls[t] = len(b)
+        arena[off:off + len(b)] = np.frombuffer(b, np.uint8)
+        off += len(b)
+    out = np.empty(out_cap, np.uint8)
+    r = lib.tok3_detokenize(
+        arena.ctypes.data_as(_u8p), doffs.ctypes.data_as(_i64p),
+        dls.ctypes.data_as(_i64p), max_tok, nreads,
+        out.ctypes.data_as(_u8p), out_cap)
+    if r < 0:
+        return None
+    return out[:r].tobytes()
 
 
 # ---------------------------------------------------------------------

@@ -189,3 +189,57 @@ def random_triples(n_blocks: int, n: int, seed: int):
         out.append((acc.astype(np.uint16), f.astype(np.uint16),
                     tot.astype(np.uint16)))
     return out
+
+
+NAME_STYLES = ("illumina", "sra", "pacbio", "zeros")
+
+
+def synth_names(n: int, style: str, seed: int = 42) -> bytes:
+    """A block of ``n`` newline-terminated read names, as a sequencer or
+    an archive emits them:
+
+    - ``illumina``: ``HSQ1004:134:C0D8DACXX:<lane>:<tile>:<x>:<y>``, one
+      lane, tiles in increasing order, x ascending within a tile;
+    - ``sra``: ``SRR062634.<i>`` with a running index, about 2 % of the
+      names repeating their predecessor (the mates of a pair);
+    - ``pacbio``: ``m130802_..._s1_p0/<zmw>/<start>_<end>``, a few
+      subreads per ZMW;
+    - ``zeros``: fixed-width fields with leading zeros
+      (``EAS139_<run>:<lane>:<tile>:<x>:<y>``, zero-padded)."""
+    rng = np.random.default_rng(seed)
+    if style == "illumina":
+        lane = int(rng.integers(1, 9))
+        tiles = np.sort(rng.choice(np.array(
+            [s * 1000 + sw * 100 + t for s in (1, 2) for sw in (1, 2, 3)
+             for t in range(1, 17)]), size=n))
+        xs = rng.integers(1000, 21000, n)
+        ys = rng.integers(1000, 200000, n)
+        order = np.lexsort((xs, tiles))
+        names = [f"HSQ1004:134:C0D8DACXX:{lane}:{t}:{x}:{y}" for t, x, y
+                 in zip(tiles[order], xs[order], ys[order])]
+    elif style == "sra":
+        step = (rng.random(n) >= 0.02).astype(np.int64)
+        idx = int(rng.integers(1, 10 ** 7)) + np.cumsum(step)
+        names = [f"SRR062634.{i}" for i in idx]
+    elif style == "pacbio":
+        movie = "m130802_221257_00127_c100560082550000001823094812221334_s1_p0"
+        zmw = int(rng.integers(0, 1000))
+        start = 0
+        names = []
+        for _ in range(n):
+            if rng.random() < 0.3:
+                zmw += int(rng.integers(1, 40))
+                start = 0
+            end = start + int(rng.integers(200, 20000))
+            names.append(f"{movie}/{zmw}/{start}_{end}")
+            start = end + int(rng.integers(30, 60))
+    elif style == "zeros":
+        tiles = np.sort(rng.integers(1, 120, n))
+        xs = rng.integers(0, 20000, n)
+        ys = rng.integers(0, 2000, n)
+        run = int(rng.integers(1, 99))
+        names = [f"EAS139_{run:04d}:{1 + t // 60}:{t:04d}:{x:05d}:{y:04d}"
+                 for t, x, y in zip(tiles, xs, ys)]
+    else:
+        raise ValueError(f"unknown name style {style!r}")
+    return ("\n".join(names) + "\n").encode()

@@ -65,6 +65,14 @@ def test_import_walk_reaches_the_device_table_modules():
         assert f"htscodecs_tpu_torch.{mod}" in names
 
 
+def test_import_walk_reaches_the_name_codec_and_the_tools():
+    names = _walked()
+    for mod in ("models.tok3", "tools", "tools._common", "tools.arith",
+                "tools.fqz", "tools.rans4x16", "tools.rans4x8",
+                "tools.tok3"):
+        assert f"htscodecs_tpu_torch.{mod}" in names
+
+
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -90,12 +98,13 @@ def test_forbidden_pattern_catches_what_it_should():
                                    "enc8", "dec8",
                                    "arith_compress", "arith_uncompress",
                                    "fqz_compress", "arith_enc_batch",
-                                   "arith_dec_batch", "enc_triples_batch"])
+                                   "arith_dec_batch", "enc_triples_batch",
+                                   "tok3_encode", "tok3_decode"])
 def test_default_device_without_a_card_raises(entry):
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
-    from htscodecs_tpu_torch.models import batch
+    from htscodecs_tpu_torch.models import batch, tok3
     from htscodecs_tpu_torch.ops import arith_vmem, rans8_v2, rans_v2, rc_vmem
     blocks = [np.zeros(64, np.uint8)] * 20
     z = np.zeros((2, 4), np.uint32)
@@ -113,6 +122,10 @@ def test_default_device_without_a_card_raises(entry):
                                  [1, 1], 0)
         elif entry == "arith_dec_batch":
             arith_vmem.dec_batch([bytes(8)] * 2, [64, 64], [1, 1], 0)
+        elif entry == "tok3_encode":
+            tok3.encode_names(b"a:1\n", 9)
+        elif entry == "tok3_decode":
+            tok3.decode_names(tok3.encode_names(b"a:1\n", 9, device="cpu"))
         elif entry == "enc_triples_batch":
             rc_vmem.enc_triples_batch([(u16, u16, u16)])
         elif entry == "compress":
