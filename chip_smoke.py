@@ -74,7 +74,22 @@ What it does, in order (any failure exits non-zero):
    and at level 19 (arith descriptors, the host loop: no kernel may
    launch), and every rANS descriptor stream of the Illumina blocks
    through ``uncompress_blocks(engine="device")``, equal to the host
-   decode.  Every block must round-trip, a spread
+   decode; then the ``parallel/`` layer: ``streaming.StreamEncoder``
+   on the 4x16 batches cut into slices of 512 blocks (wide41: 256) at
+   depth 1 to 3, with the dense u16 and the sparse 12-bit header
+   transports, at order 0 and on slices already on the card
+   (``assemble=False``), each stream equal to ``compress_blocks``' and
+   one encoder launch per slice, beside a serial loop of
+   ``compress_blocks`` over the same slices; ``pipeline.roundtrip_o1_v2``
+   per shift group of the order-1 batch with host-built tables (no
+   mismatch, the payload bytes of ``compress_blocks``' streams, one
+   encoder and one packed-decoder launch, device ms by CUDA events),
+   ``sharded_roundtrip_o1_v2`` over [cuda:0, cuda:0] and the v1 oracle
+   step ``roundtrip_o1`` at 64 x 4 KiB; two ranks of this script in one
+   gloo group (``--dist-worker``), both on cuda:0, each running every
+   entry of ``parallel/distributed`` on its own B/2 blocks against the
+   single-process entry, and ``archive_offsets`` consistent across
+   them.  Every block must round-trip, a spread
    sample of streams must be byte-identical to the host coder's,
    and exactly the kernels of each path must have been launched;
 4. profiles one more pass of each order-1 main path, of the order-9
@@ -140,6 +155,8 @@ from htscodecs_tpu_torch.models import (arith, batch, fqz,  # noqa: E402
 from htscodecs_tpu_torch.ops import (arith_vmem, convert,  # noqa: E402
                                      rans8_vmem, rans_pallas, rans_v2,
                                      rans_vmem, rc_vmem, tables_v2)
+from htscodecs_tpu_torch.parallel import (distributed,  # noqa: E402
+                                          pipeline, streaming)
 from htscodecs_tpu_torch.utils import testdata, varint  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -1899,12 +1916,325 @@ def ab_run(parent: str, B: int) -> None:
     print(json.dumps({"ab_ms": res}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the parallel/ layer: the stream encoder, the round-trip step and the
+# block-sharded codecs
+
+STREAM_B = 512          # blocks per submitted slice of synth4
+WIDE_STREAM_B = 256     # blocks per slice of wide41
+
+
+def slices(blocks, per):
+    return [blocks[i:i + per] for i in range(0, len(blocks), per)]
+
+
+def run_stream(batches, order, depth, hdr="auto", assemble=True):
+    """One StreamEncoder over the batches, the launch counts set to 0
+    just before and read just after: (outputs per batch, host wall s
+    ending in a synchronise, launches, header-transport bytes)."""
+    rans_vmem.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = streaming.StreamEncoder(order=order, depth=depth, hdr=hdr,
+                                  assemble=assemble, device=DEV)
+    outs = []
+    for bt in batches:
+        enc.submit(bt)
+        outs += enc.drain_ready()
+    outs += enc.finish()
+    torch.cuda.synchronize()
+    return (outs, time.perf_counter() - t0, dict(rans_vmem.LAUNCHES),
+            dict(enc.hdr_bytes))
+
+
+def streams_from_tuple(res, blocks):
+    """An ``assemble=False`` result -> framed streams, as ``_collect``
+    assembles them (flagged blocks through the host coder)."""
+    hdrs, states, words, counts, flag, _shift = res
+    st = states.cpu().numpy().view(np.uint32)
+    wd = words.cpu().numpy().view(np.uint16)
+    bodies = batch._join_bodies(hdrs, st, wd, counts)
+    N = blocks.shape[1]
+    return [streaming._frame_plain(
+        1, N, rans4x16._compress_o1(blocks[b]) if flag[b] else bodies[b],
+        blocks[b]) for b in range(len(bodies))]
+
+
+def stream_case(name, batches, want, order, depth, hdr="auto", staged=None):
+    """Drive one stream configuration; every stream must equal
+    ``want`` (the batch entry's), the one 4x16 encoder must launch once
+    per batch and no other kernel.  Returns its report row."""
+    B = sum(len(b) for b in batches)
+    N = batches[0].shape[1]
+    outs, wall, launches, hdr_bytes = run_stream(
+        staged if staged is not None else batches, order, depth, hdr,
+        assemble=staged is None)
+    if staged is not None:
+        outs = [streams_from_tuple(r, b) for r, b in zip(outs, batches)]
+    got = [s for out in outs for s in out]
+    if len(got) != B or got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   len(got))
+        fail(f"stream {name}: stream {bad} differs from compress_blocks'")
+    for k, v in launches.items():
+        if v != (len(batches) if k == "rans16_enc_packed" else 0):
+            fail(f"stream {name}: kernel {k} launched {v} times for "
+                 f"{len(batches)} batches")
+    row = {"B": B, "N": N, "batch": len(batches[0]), "order": order,
+           "depth": depth, "hdr": hdr, "prestaged": staged is not None,
+           "wall_s": wall, "MBps": B * N / 1e6 / wall, "launches": launches,
+           "hdr_d2h_bytes_per_batch": {
+               k: v / len(batches) for k, v in hdr_bytes.items() if v}}
+    log(f"stream {name}: {row}")
+    return row
+
+
+def serial_loop(batches, want, order):
+    """The same batches through a serial loop of compress_blocks."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [s for bt in batches
+           for s in batch.compress_blocks(bt, order=order)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if got != want:
+        fail("serial compress_blocks loop: streams differ")
+    B, N = sum(len(b) for b in batches), batches[0].shape[1]
+    return {"wall_s": wall, "MBps": B * N / 1e6 / wall}
+
+
+def run_stream_paths(q4, streams1, streams0, wide, streams_w):
+    """The stream encoder on synth4 (order 1 at depths 1-3, both header
+    transports, order 0, pre-staged CUDA input) and wide41 (s12 by
+    "auto", and u16), each against the batch entry's streams, and the
+    serial loop of compress_blocks over the same slices."""
+    res = {}
+    q4b = slices(q4, STREAM_B)
+    for depth in (1, 2, 3):
+        res[f"synth4 o1 depth{depth}"] = stream_case(
+            f"synth4 order 1 depth {depth}", q4b, streams1, 1, depth)
+    t = time.perf_counter()
+    for b in np.linspace(0, len(q4) - 1, min(256, len(q4))).astype(int):
+        if streams1[b] != rans4x16.compress(q4[b], 1):
+            fail(f"stream synth4: stream {b} differs from the host coder's")
+    log(f"stream synth4: 256 sampled streams equal rans4x16.compress "
+        f"({time.perf_counter() - t:.1f} s)")
+    for hdr in ("u16", "s12"):
+        res[f"synth4 o1 depth2 {hdr}"] = stream_case(
+            f"synth4 order 1 depth 2 hdr={hdr}", q4b, streams1, 1, 2, hdr)
+    res["synth4 o0 depth2"] = stream_case(
+        "synth4 order 0 depth 2", q4b, streams0, 0, 2)
+    q4_d = torch.from_numpy(q4).to(DEV)
+    res["synth4 o1 depth2 prestaged"] = stream_case(
+        "synth4 order 1 depth 2 pre-staged", q4b, streams1, 1, 2,
+        staged=slices(q4_d, STREAM_B))
+    del q4_d
+    res["synth4 o1 serial compress_blocks"] = serial_loop(q4b, streams1, 1)
+    wb = slices(wide, WIDE_STREAM_B)
+    for hdr in ("auto", "u16"):
+        row = stream_case(f"wide41 order 1 depth 2 hdr={hdr}", wb, streams_w,
+                          1, 2, hdr)
+        if hdr == "auto" and set(row["hdr_d2h_bytes_per_batch"]) != {"s12"}:
+            fail("stream wide41: hdr='auto' did not pick s12")
+        res[f"wide41 o1 depth2 {hdr}"] = row
+    res["wide41 o1 serial compress_blocks"] = serial_loop(wb, streams_w, 1)
+    # where a slice's host time goes (the encoder's own functions)
+    profile_call("stream encoder synth4 order 1 depth 2", run_stream, q4b,
+                 1, 2)
+    return res
+
+
+def payload_bytes(streams, headers, N):
+    """Bytes after the wrapper framing and the table header."""
+    head = 1 + len(varint_bytes(N))
+    return sum(len(s) - head - len(h) for s, h in zip(streams, headers))
+
+
+def varint_bytes(n):
+    b = bytearray()
+    varint.put_uint(b, n)
+    return bytes(b)
+
+
+def run_roundtrip_step(q4, streams1):
+    """pipeline.roundtrip_o1_v2 on synth4 order 1 with host-built dense
+    tables, one call per shift group (the step takes one shift):
+    mismatches 0, payload bytes equal to compress_blocks' streams', one
+    encoder and one packed-decoder launch per call; device ms of the
+    largest group by CUDA events; the same group split over
+    [cuda:0, cuda:0]; the v1 oracle step at 64 x 4 KiB."""
+    B, N = q4.shape
+    t = time.perf_counter()
+    res = batch._pmap(native.build_tables_o1_dense, list(q4))
+    shifts = np.array([r[3] for r in res])
+    log(f"roundtrip step: host tables of {B} blocks in "
+        f"{time.perf_counter() - t:.1f} s, shifts {np.unique(shifts).tolist()}")
+    out = {"B": B, "N": N, "groups": []}
+    for sh in np.unique(shifts):
+        idx = np.flatnonzero(shifts == sh)
+        alpha, packed, _A = rans_v2.densify_builds(
+            (res[i][1], res[i][2]) for i in idx)
+        want = payload_bytes([streams1[i] for i in idx],
+                             [res[i][0] for i in idx], N)
+        bt, al, pk = pipeline._on(DEV, q4[idx], alpha, packed)
+        rans_vmem.reset_launches()
+        mism, nbytes = pipeline.roundtrip_o1_v2(bt, al, pk, int(sh), N,
+                                                device=DEV)
+        launches = dict(rans_vmem.LAUNCHES)
+        if mism or nbytes != want:
+            fail(f"roundtrip_o1_v2 shift {sh}: {mism} mismatches, {nbytes} "
+                 f"bytes against {want}")
+        for k, v in launches.items():
+            if v != (1 if k in ("rans16_enc_packed", "rans16_dec_packed")
+                     else 0):
+                fail(f"roundtrip_o1_v2: kernel {k} launched {v} times")
+        ms = cuda_ms(lambda: pipeline._roundtrip_o1_v2(bt, al, pk, int(sh), N),
+                     reps=3)
+        two = pipeline.sharded_roundtrip_o1_v2([DEV, DEV], q4[idx], alpha,
+                                               packed, int(sh), N)
+        if two != (0, want):
+            fail(f"sharded_roundtrip_o1_v2 shift {sh}: {two}, want (0, {want})")
+        out["groups"].append({"shift": int(sh), "blocks": len(idx),
+                              "mismatches": mism, "payload_bytes": nbytes,
+                              "device_ms": ms, "launches": launches,
+                              "sharded_2x_cuda0": list(two)})
+        del bt, al, pk
+    log(f"roundtrip_o1_v2: {out}")
+    v1 = testdata.synth_quality(64, 4096, seed=7)
+    st, fr, sh1, hdrs = pipeline.build_o1_tables(v1)
+    keep = np.flatnonzero(sh1 == np.bincount(sh1).argmax())
+    v1, st, fr, hdrs = v1[keep], st[keep], fr[keep], [hdrs[i] for i in keep]
+    shift = int(sh1[keep[0]])
+    st_p, fr_p, va_p, K, q = pipeline.build_o1_batch_inputs(v1, st, fr, shift)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mism, nbytes = pipeline.roundtrip_o1(st_p, fr_p, va_p, fr, st, v1, shift,
+                                         K, q, v1.shape[1], device=DEV)
+    wall = time.perf_counter() - t
+    want = sum(len(native.enc_o1(b)) - len(h) for b, h in zip(v1, hdrs))
+    if mism or nbytes != want:
+        fail(f"roundtrip_o1 (v1): {mism} mismatches, {nbytes} bytes against "
+             f"{want}")
+    out["v1"] = {"B": len(v1), "N": v1.shape[1], "shift": shift,
+                 "mismatches": mism, "payload_bytes": nbytes, "wall_s": wall}
+    log(f"roundtrip_o1 (v1 oracle): {out['v1']}")
+    return out
+
+
+DIST_RANKS = 2
+
+
+def dist_blocks(rank, B):
+    return testdata.synth_quality(B, 65536, seed=1000 + rank)
+
+
+def dist_worker(rank, rdv, B) -> None:
+    """One rank of the distributed phase: every entry of
+    parallel/distributed on its own synth4 blocks, each against the
+    single-process batch entry (streams byte for byte, every block
+    round-trips), launches counted per entry; prints one DIST_RESULT
+    line."""
+    if not distributed.init_distributed(
+            f"file://{Path(rdv) / 'rendezvous'}", DIST_RANKS, rank):
+        fail("init_distributed did not start a group")
+    mesh = distributed.local_mesh()
+    blocks = dist_blocks(rank, B)
+    rep = {"rank": rank, "mesh": [str(d) for d in mesh], "B": B}
+
+    def entry(name, enc, dec, want_enc, data):
+        rans_vmem.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = enc(data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = dec(streams)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: v for k, v in rans_vmem.LAUNCHES.items() if v}
+        if streams != want_enc(data):
+            fail(f"rank {rank} {name}: streams differ from the "
+                 "single-process entry's")
+        if back != [b.tobytes() for b in data]:
+            fail(f"rank {rank} {name}: a block did not round-trip")
+        rep[name] = {"blocks": len(data), "compress_s": t1 - t0,
+                     "uncompress_s": t2 - t1, "launches": launches}
+        return streams
+
+    s1 = entry("compress_blocks_o1", distributed.compress_blocks_o1,
+               distributed.uncompress_blocks_o1,
+               lambda d: batch.compress_blocks(d, order=1), blocks)
+    for order, n in ((1, B), (9, B), (193, 256)):
+        entry(f"compress_blocks order {order}",
+              lambda d, o=order: distributed.compress_blocks(d, o),
+              distributed.uncompress_blocks,
+              lambda d, o=order: batch.compress_blocks(d, order=o),
+              blocks[:n])
+    entry("r4x8 order 1", lambda d: distributed.r4x8_compress_blocks(d, 1),
+          distributed.r4x8_uncompress_blocks,
+          lambda d: batch.r4x8_compress_blocks(d, order=1), blocks)
+    entry("arith order 0", lambda d: distributed.arith_compress_blocks(d, 0),
+          distributed.arith_uncompress_blocks,
+          lambda d: batch.arith_compress_blocks(d, order=0), blocks[:512])
+    mine = sum(map(len, s1))
+    offs, total = distributed.archive_offsets([len(s) for s in s1])
+    rep.update(off0=int(offs[0]), total=total, mine=mine)
+    print("DIST_RESULT " + json.dumps(rep), flush=True)
+
+
+def run_distributed_paths(B):
+    """Two worker processes of this script in one gloo group (file://
+    rendezvous in a temporary directory), both on cuda:0; the libraries
+    are built before they start.  Fails if a worker fails, or if the
+    archive offsets disagree across the ranks."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-worker",
+             str(r), "--dist-dir", tmp, "--blocks", str(B)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DIST_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=420)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"distributed rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    reps = {}
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("DIST_RESULT "):
+                rep = json.loads(line[len("DIST_RESULT "):])
+                reps[rep["rank"]] = rep
+    if set(reps) != set(range(DIST_RANKS)):
+        fail(f"distributed: results from ranks {sorted(reps)}")
+    r0, r1 = reps[0], reps[1]
+    if not (r0["off0"] == 0 and r1["off0"] == r0["mine"]
+            and r0["total"] == r1["total"] == r0["mine"] + r1["mine"]):
+        fail(f"archive_offsets disagree: {r0} / {r1}")
+    res = {"ranks": reps, "wall_s": time.perf_counter() - t0}
+    log(f"distributed paths: {res}")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--blocks", type=int, default=4096,
                     help="blocks of 64 KiB in the main path's batches")
     ap.add_argument("--quick", action="store_true",
                     help="a thin slice of the kernel comparison grid")
+    ap.add_argument("--dist-worker", type=int, metavar="RANK",
+                    help="run one rank of the distributed phase (the "
+                         "script starts these itself)")
+    ap.add_argument("--dist-dir", metavar="DIR",
+                    help="the distributed phase's rendezvous directory")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time arith_enc, arith_dec, rans8_enc, "
                          "rans8_dec, rc_enc and the 4x16 encoder and "
@@ -1912,6 +2242,9 @@ def main() -> None:
                          "the checkout at DIR (e.g. the parent commit "
                          "unpacked with git archive), in turns")
     args = ap.parse_args()
+    if args.dist_worker is not None:
+        dist_worker(args.dist_worker, args.dist_dir, args.blocks)
+        return
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1968,13 +2301,23 @@ def main() -> None:
     log(f"synth4 order 1: {nband} blocks in the shift band, {nflip} rebuilt "
         "on the host")
     _l, streams0 = run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
-    run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
+    _l, streams_w = run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
     # both table routes of the synth4 batches, each launching the one
     # encoder alone, give the main path's streams
     routes_s = {f"order{o}": run_table_routes(q4, o, st, f"synth4 order {o}")
                 for o, st in ((1, streams1), (0, streams0))}
     routes_s["shape"] = f"B={B} N={N}"
-    del streams0, streams1
+
+    # the parallel/ layer: the stream encoder on slices of the same
+    # batches, the one-call round-trip step, two ranks of a gloo group
+    t = time.perf_counter()
+    stream_paths = run_stream_paths(q4, streams1, streams0, wide, streams_w)
+    log(f"stream phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    roundtrip = run_roundtrip_step(q4, streams1)
+    log(f"roundtrip phase: {time.perf_counter() - t:.1f} s")
+    del streams0, streams1, streams_w
+    dist_paths = run_distributed_paths(max(B // 2, 2))
     route_sweep = table_route_sweep(q4)
 
     # the first-generation engine on device-built tables
@@ -2085,6 +2428,9 @@ def main() -> None:
     print(json.dumps({"dec_sweep_ms": dsweep}), flush=True)
     print(json.dumps({"transform_paths": transform}), flush=True)
     print(json.dumps({"tok3_paths": tok3_paths}), flush=True)
+    print(json.dumps({"stream_paths": stream_paths}), flush=True)
+    print(json.dumps({"roundtrip_step": roundtrip}), flush=True)
+    print(json.dumps({"distributed_paths": dist_paths}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

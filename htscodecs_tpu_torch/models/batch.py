@@ -50,6 +50,14 @@ Every entry point but the host-only ``fqz_decompress_blocks`` takes
 card that default raises; ``device="cpu"`` runs the engine's plain
 PyTorch versions (what the CPU tests do).  Nothing falls back from a
 failed kernel to the CPU.
+
+The rANS entries take the JAX package's engine hooks, through which the
+block-sharded layer (``parallel/distributed.py``) runs every
+same-shape group over several devices: ``compress_blocks(bodies_fn=)``,
+``uncompress_blocks(dec_fn=)``, ``r4x8_compress_blocks(enc_fn=)`` and
+``r4x8_uncompress_blocks(dec_fn=)``.  A hook is called with the JAX
+hook's arguments; None from it means "take the usual route", and an
+exception inside it propagates.
 """
 
 from __future__ import annotations
@@ -119,7 +127,7 @@ def _small_group(count: int, nbytes: int, engine: str) -> bool:
 
 
 def compress_blocks(blocks, order: int, engine: str = "auto",
-                    device="cuda") -> list[bytes]:
+                    device="cuda", bodies_fn=None) -> list[bytes]:
     """Compress a sequence of blocks with the rANS 4x16 codec.
 
     Any reference order bit-field is accepted: plain 0/1 batches
@@ -131,6 +139,10 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
     ``rans4x16.compress`` in every path.
 
     engine: "auto" | "device" | "host".
+    bodies_fn: optional entropy-body producer ``(batch (B,N) u8,
+    order01) -> list[bytes] | None``, called for every group that would
+    reach the device engine (plain blocks, stripe lanes and transform
+    candidates alike); None from it sends the group the usual way.
     """
     dev = rans_v2.check_device(device)
     arrs = [_as_u8(b) for b in blocks]
@@ -138,7 +150,8 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
 
     plain_order = order in (0, 1)
     if not plain_order and engine != "host":
-        return _compress_blocks_transform(arrs, order, engine, dev)
+        return _compress_blocks_transform(arrs, order, engine, dev,
+                                          bodies_fn)
     groups: dict[int, list[int]] = defaultdict(list)
     for i, a in enumerate(arrs):
         if plain_order and engine != "host" and len(a) >= 32:
@@ -152,8 +165,10 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
                 out[i] = rans4x16.compress(arrs[i], order)
             continue
         batch = np.stack([arrs[i] for i in idxs])
-        bodies = (_bodies_o1(batch, dev) if order == 1
-                  else _bodies_o0(batch, dev))
+        bodies = bodies_fn(batch, order) if bodies_fn is not None else None
+        if bodies is None:
+            bodies = (_bodies_o1(batch, dev) if order == 1
+                      else _bodies_o0(batch, dev))
         for k, i in enumerate(idxs):
             out[i] = _frame(order, n, bodies[k], batch[k])
 
@@ -300,11 +315,13 @@ def _peel_encode(data: np.ndarray, order: int, jobs: list):
     return ("fin", fin)
 
 
-def _encode_entropy_jobs(jobs: list, engine: str, dev) -> dict:
+def _encode_entropy_jobs(jobs: list, engine: str, dev,
+                         bodies_fn=None) -> dict:
     """Encode deferred (data, order01) entropy jobs, batching same-shape
     groups through the device engine (``_bodies_o0`` / ``_bodies_o1``,
     whose groups of at least ``TABLES_DEVICE_MIN`` blocks build their
-    tables on the card).  Returns {jid: body bytes}."""
+    tables on the card) or through ``bodies_fn`` (``compress_blocks``).
+    Returns {jid: body bytes}."""
     results: dict[int, bytes] = {}
     groups: dict[tuple, list[int]] = defaultdict(list)
     for jid, (data, o) in enumerate(jobs):
@@ -319,14 +336,16 @@ def _encode_entropy_jobs(jobs: list, engine: str, dev) -> dict:
             continue
         ENTROPY_JOBS["encode"]["device"] += len(jids)
         batch = np.stack([jobs[j][0] for j in jids])
-        bodies = _bodies_o1(batch, dev) if o else _bodies_o0(batch, dev)
+        bodies = bodies_fn(batch, o) if bodies_fn is not None else None
+        if bodies is None:
+            bodies = _bodies_o1(batch, dev) if o else _bodies_o0(batch, dev)
         for jid, body in zip(jids, bodies):
             results[jid] = body
     return results
 
 
-def _compress_blocks_transform(arrs, order: int, engine: str,
-                               dev) -> list[bytes]:
+def _compress_blocks_transform(arrs, order: int, engine: str, dev,
+                               bodies_fn=None) -> list[bytes]:
     out: list[bytes | None] = [None] * len(arrs)
     jobs: list = []
     fins: list[tuple[int, tuple]] = []
@@ -335,7 +354,7 @@ def _compress_blocks_transform(arrs, order: int, engine: str,
             fins.append((i, _peel_encode(a, order, jobs)))
         except ValueError:
             out[i] = rans4x16.compress(a, order)
-    res = _encode_entropy_jobs(jobs, engine, dev) if jobs else {}
+    res = _encode_entropy_jobs(jobs, engine, dev, bodies_fn) if jobs else {}
     for i, cand in fins:
         s = _finish(cand, res)
         out[i] = s if s is not None else rans4x16.compress(arrs[i], order)
@@ -410,16 +429,14 @@ def _copy_after(event, tensors):
     return host, done
 
 
-def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
-    """Order-1 entropy bodies with on-device table construction.
-
-    The batch goes to the device once.  The encode runs with the
-    per-block shift the builder chose and is launched BEFORE the host
-    copies meta, header frequencies and alphabet on a side stream, so
-    the host serialises headers and replays banded shift decisions
-    while the device encodes.  Blocks whose decision really flips
-    rebuild on the host, so streams stay byte-exact.  None -> the
-    caller takes the host-table route."""
+def _o1_devtables_launch(batch: np.ndarray, dev):
+    """Queue the order-1 device-table route of a batch on ``dev``'s
+    current stream: the table build, the encode with the per-block shift
+    the table build chose, and the host copies of meta, header frequencies
+    and alphabet on a side stream, launched AFTER the encode so that the
+    host can serialise headers while the device encodes.  Returns what
+    ``_o1_devtables_finish`` takes, or None (wide alphabet or tiny
+    blocks: the caller takes the host-table route)."""
     jb = convert.as_tensor(batch, torch.uint8, dev)
     r = tables_v2.build_o1_device_async(jb, device=dev)
     if r is None:
@@ -429,6 +446,15 @@ def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
     enc = rans_vmem.rans16_enc_packed(
         jb, alpha_d, packed_d.reshape(len(batch), -1), meta_d[:, 1], 1)
     host, done = _copy_after(built, (meta_d, fhdr_d, alpha_d))
+    return enc, H_d, host, done
+
+
+def _o1_devtables_finish(batch: np.ndarray, pending) -> list[bytes] | None:
+    """Wait for ``_o1_devtables_launch``'s copies, serialise the headers
+    and join the bodies.  Blocks whose banded shift decision really
+    flips rebuild on the host, so streams stay byte-exact.  None -> the
+    caller takes the host-table route."""
+    enc, H_d, host, done = pending
     if done is not None:
         done.synchronize()
     meta, fhdr, alpha_h = (t.numpy() for t in host)
@@ -441,6 +467,14 @@ def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
     for b in np.flatnonzero(flag):
         bodies[b] = rans4x16._compress_o1(batch[b])
     return bodies
+
+
+def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
+    """Order-1 entropy bodies with on-device table construction (the
+    batch goes to the device once); None -> the caller takes the
+    host-table route."""
+    pending = _o1_devtables_launch(batch, dev)
+    return None if pending is None else _o1_devtables_finish(batch, pending)
 
 
 def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
@@ -637,13 +671,18 @@ def _peel_stripe(s: bytes, out_size):
 
 
 def uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
-                      device="cuda") -> list[bytes]:
+                      device="cuda", dec_fn=None) -> list[bytes]:
     """Decompress a sequence of rANS 4x16 streams.
 
     Transform-flagged streams (PACK/RLE/CAT/NOSZ and STRIPE containers)
     are peeled on the host and their entropy payloads, every stripe
     lane's included, join the same batched device decode as the plain
-    streams."""
+    streams.
+
+    dec_fn: optional decode-group engine ``(order01, osz, states (B,4)
+    u32, words (B,W) u16 zero-padded, alpha, packed, shift) -> (B, osz)
+    u8 | None``, called for every group that would reach the device
+    engine; None from it sends the group the usual way."""
     dev = rans_v2.check_device(device)
     streams = [bytes(s) for s in streams]
     out: list[bytes | None] = [None] * len(streams)
@@ -704,7 +743,7 @@ def uncompress_blocks(streams, out_sizes=None, engine: str = "auto",
                 jobs.append((jid, order, body, t1))
                 finishers.append((i, "plain", (jid, post)))
 
-    results = _decode_entropy_jobs(jobs, engine, dev) if jobs else {}
+    results = _decode_entropy_jobs(jobs, engine, dev, dec_fn) if jobs else {}
 
     # ---- assemble ----------------------------------------------------
     for i, kind, state in finishers:
@@ -744,7 +783,7 @@ def _host_decode(order: int, s: bytes, osz: int):
     return rans4x16._uncompress_o0(memoryview(s), 0, len(s), osz)
 
 
-def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
+def _decode_entropy_jobs(jobs, engine: str, dev, dec_fn=None) -> dict:
     """Decode a list of (jid, order, body, out_sz) rans4x16 entropy
     payloads, batching same-shape groups onto the device.  Returns
     {jid: np.uint8 array} (missing jid = parse failure)."""
@@ -797,8 +836,12 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
             shift = key[2]
             alpha, packed, _ = rans_v2.densify_builds(
                 (t[3], t[4]) for t in items)
-            dec = rans_v2.dec_o1_batch(states, words, osz, alpha, packed,
-                                       shift, device=dev, counts=nws)
+            dec = dec_fn(1, osz, states, words, alpha, packed,
+                         shift) if dec_fn is not None else None
+            if dec is None:
+                dec = rans_v2.dec_o1_batch(states, words, osz, alpha,
+                                           packed, shift, device=dev,
+                                           counts=nws)
         else:
             # per-slot LUTs -> per-symbol tables: sbase[m] = m - start
             frs = np.zeros((B, 256), np.uint32)
@@ -818,8 +861,11 @@ def _decode_entropy_jobs(jobs, engine: str, dev) -> dict:
                         results[it[0]] = rr
                 continue
             alpha, packed, _ = dense
-            dec = rans_v2.dec_o0_batch(states, words, osz, alpha, packed,
-                                       device=dev, counts=nws)
+            dec = dec_fn(0, osz, states, words, alpha, packed,
+                         12) if dec_fn is not None else None
+            if dec is None:
+                dec = rans_v2.dec_o0_batch(states, words, osz, alpha,
+                                           packed, device=dev, counts=nws)
         ENTROPY_JOBS["decode"]["device"] += len(items)
         for k, it in enumerate(items):
             results[it[0]] = dec[k]
@@ -844,12 +890,16 @@ def _r8_dense_o0(res):
 
 
 def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
-                         device="cuda") -> list[bytes]:
+                         device="cuda", enc_fn=None) -> list[bytes]:
     """Compress a sequence of blocks with the rANS 4x8 codec (CRAM
     3.0), batching the payload scans onto the device.  Streams are
     byte-identical to ``rans4x8.compress`` in every path.
 
     engine: "auto" | "device" | "host".
+    enc_fn: optional payload-scan engine ``(batch (B,N) u8, alpha,
+    packed, order01) -> (states (B,4) u32, bytes (B,W) u8 each stream
+    at the start of its row, counts (B,)) | None``; None from it sends
+    the group the usual way.
     """
     dev = rans_v2.check_device(device)
     arrs = [_as_u8(b) for b in blocks]
@@ -879,7 +929,11 @@ def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
         else:
             alpha, packed = _r8_dense_o0(res)
             enc = rans8_v2.enc_o0_batch
-        states, wbytes, counts = enc(batch, alpha, packed, device=dev)
+        res8 = enc_fn(batch, alpha, packed, order) \
+            if enc_fn is not None else None
+        if res8 is None:
+            res8 = enc(batch, alpha, packed, device=dev)
+        states, wbytes, counts = res8
         st = states.astype("<u4", copy=False)
         for k, i in enumerate(idxs):
             tab = res[k][0]
@@ -934,11 +988,15 @@ def _r8_parse_group(items, order: int):
 
 
 def r4x8_uncompress_blocks(streams, engine: str = "auto",
-                           device="cuda") -> list[bytes]:
+                           device="cuda", dec_fn=None) -> list[bytes]:
     """Decompress a sequence of rANS 4x8 streams, batching the payload
     scans of each (order, out size) group onto the device.  Short,
     malformed or wide-alphabet streams go to ``rans4x8.uncompress``,
-    which raises ValueError on a corrupt stream."""
+    which raises ValueError on a corrupt stream.
+
+    dec_fn: optional decode-group engine ``(order01, osz, states (B,4)
+    u32, stream (B,W) u8 zero-padded, alpha, packed) -> (B, osz) u8 |
+    None``; None from it sends the group the usual way."""
     dev = rans_v2.check_device(device)
     streams = [bytes(s) for s in streams]
     out: list[bytes | None] = [None] * len(streams)
@@ -958,8 +1016,12 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
                 out[i] = rans4x8.uncompress(s)
             continue
         states, stream, nbs, alpha, packed = parsed
-        dec = rans8_v2.dec_o1_batch if order else rans8_v2.dec_o0_batch
-        res = dec(states, stream, osz, alpha, packed, device=dev, counts=nbs)
+        res = dec_fn(order, osz, states, stream, alpha, packed) \
+            if dec_fn is not None else None
+        if res is None:
+            dec = rans8_v2.dec_o1_batch if order else rans8_v2.dec_o0_batch
+            res = dec(states, stream, osz, alpha, packed, device=dev,
+                      counts=nbs)
         for k, (i, _s) in enumerate(items):
             out[i] = res[k].tobytes()
     return out  # type: ignore[return-value]

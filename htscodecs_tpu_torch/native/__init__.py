@@ -98,13 +98,22 @@ def _declare(lib) -> None:
         _sig(getattr(lib, nm), _i64, [_u8p, _i64, _u8p, _i64])
     _sig(lib.r16_build_tables_o0, _i64,
          [_u8p, _i64, _u8p, _i64, _u32p, _u32p])
+    _sig(lib.r16_build_tables_o1, _i64,
+         [_u8p, _i64, _u8p, _i64, _u32p, _u32p, _i32p])
     _sig(lib.r16_parse_tables_o0, _i64, [_u8p, _i64, _u8p, _u16p, _u16p])
+    _sig(lib.r16_parse_tables_o1, _i64,
+         [_u8p, _i64, _u8p, _u16p, _u16p, _i32p])
+    _sig(lib.r16_gather_params_o1, _i64,
+         [_u8p, _i64, _u32p, _u32p, _u16p, _u16p])
     _sig(lib.r16_build_tables_o1_dense, _i64,
          [_u8p, _i64, _u8p, _i64, _u8p, _i32p, _i32, _i32p, _i32p])
     _sig(lib.r16_parse_tables_o1_dense, _i64,
          [_u8p, _i64, _u8p, _i32p, _i32, _i32p, _i32p])
     _sig(lib.r16_serialize_o1_dense_batch, _i64,
          [_u8p, _i32p, _u16p, _i32p, _i32, _i32, _u8p, _i64, _i64p])
+    _sig(lib.r16_serialize_o1_sparse12_batch, _i64,
+         [_u8p, _i32p, _u8p, _u8p, _i32p, _i32, _i32, _i32, _i32, _u8p,
+          _i64, _i64p])
     _sig(lib.r16_serialize_o0_batch, _i64,
          [_u16p, _i32, _u8p, _i64, _i64p])
     _sig(lib.r16_compress_wrapped, _i64, [_u8p, _i64, _i32, _u8p, _i64])
@@ -186,6 +195,65 @@ def build_tables_o0(data: np.ndarray):
     if hl < 0:
         return None
     return hdr[:hl].tobytes(), st, fr
+
+
+def build_tables_o1(data: np.ndarray):
+    """Order-1 table build over all 256 contexts.  Returns (header
+    bytes, starts (256,256) u32, freqs (256,256) u32, shift) or None."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    hdr = np.empty(257 * 257 * 3 + 64, dtype=np.uint8)
+    st = np.empty((256, 256), dtype=np.uint32)
+    fr = np.empty((256, 256), dtype=np.uint32)
+    sh = _i32(0)
+    hl = lib.r16_build_tables_o1(
+        ap, len(a), hdr.ctypes.data_as(_u8p), len(hdr),
+        st.ctypes.data_as(_u32p), fr.ctypes.data_as(_u32p),
+        ctypes.byref(sh))
+    if hl < 0:
+        return None
+    return hdr[:hl].tobytes(), st, fr, int(sh.value)
+
+
+def parse_tables_o1(blob):
+    """Order-1 table parse.  Returns (payload offset, sfb (256, 1<<shift)
+    u8 slot -> symbol per context, f2d (256,256) u16 freqs, b2d
+    (256,256) u16 bases, shift) or None."""
+    lib = get_lib()
+    a, ap = _u8(np.frombuffer(bytes(blob), dtype=np.uint8))
+    sfb = np.empty(256 << 12, dtype=np.uint8)
+    f2d = np.empty(65536, dtype=np.uint16)
+    b2d = np.empty(65536, dtype=np.uint16)
+    sh = _i32(0)
+    off = lib.r16_parse_tables_o1(
+        ap, len(a), sfb.ctypes.data_as(_u8p), f2d.ctypes.data_as(_u16p),
+        b2d.ctypes.data_as(_u16p), ctypes.byref(sh))
+    if off < 0:
+        return None
+    shift = int(sh.value)
+    return (int(off), sfb[:256 << shift].reshape(256, 1 << shift),
+            f2d.reshape(256, 256), b2d.reshape(256, 256), shift)
+
+
+def gather_params_o1(data: np.ndarray, starts: np.ndarray, freqs: np.ndarray):
+    """Per-symbol (start, freq) u16 order-1 coding parameters in the v1
+    engine's processing order (``ops/rans_jax.py``: quarter steps
+    k = q-2..0 with states 3..0, then the four context-0 leaders).
+    Needs len(data) % 4 == 0 and len(data) >= 8.  Returns (st (K,4),
+    fr (K,4)) u16 or None."""
+    lib = get_lib()
+    a, ap = _u8(data)
+    n = len(a)
+    st32 = np.ascontiguousarray(starts, dtype=np.uint32)
+    fr32 = np.ascontiguousarray(freqs, dtype=np.uint32)
+    so = np.empty(n, dtype=np.uint16)
+    fo = np.empty(n, dtype=np.uint16)
+    w = lib.r16_gather_params_o1(
+        ap, n, st32.ctypes.data_as(_u32p), fr32.ctypes.data_as(_u32p),
+        so.ctypes.data_as(_u16p), fo.ctypes.data_as(_u16p))
+    if w < 0:
+        return None
+    return so.reshape(-1, 4), fo.reshape(-1, 4)
 
 
 _TLBUF = threading.local()
@@ -332,6 +400,50 @@ def serialize_o1_dense_batch(alphas: np.ndarray, asz: np.ndarray,
         al.ctypes.data_as(_u8p), az.ctypes.data_as(_i32p),
         fr.ctypes.data_as(_u16p), sh.ctypes.data_as(_i32p),
         B, Apad, arena.ctypes.data_as(_u8p), cap, offs.ctypes.data_as(_i64p))
+    if r < 0:
+        return None
+    return _split_arena(arena, offs)
+
+
+# the errors of r16_serialize_o1_sparse12_batch that name a fault of
+# its input (the others, -1 and -2, give None as the dense serialiser's)
+_SPARSE12_ERRORS = {
+    -3: "value prefix narrower than the batch's max nonzero count",
+    -4: "context row total is not a power of two <= 4096",
+    -5: "bitmap bit set past the Apad*Apad table entries (pad bit set)",
+}
+
+
+def serialize_o1_sparse12_batch(alphas: np.ndarray, asz: np.ndarray,
+                                bitmap: np.ndarray, vals12: np.ndarray,
+                                shifts: np.ndarray):
+    """Batched order-1 header serialisation from the sparse 12-bit
+    transport (``ops/tables_v2.pack_freqs_sparse12``): presence bitmap
+    (B, ceil(Apad^2/8)) u8 and row-compacted packed values (B, VW) u8,
+    where VW may be any prefix wide enough for the batch's max nonzero
+    count.  Byte-identical to ``serialize_o1_dense_batch`` on the
+    unpacked frequencies.  Raises ValueError naming the fault for a
+    prefix too narrow, a row that is not normalised or a pad bit set;
+    returns a list of B header byte strings, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    B, Apad = alphas.shape
+    al = np.ascontiguousarray(alphas, np.uint8)
+    az = np.ascontiguousarray(asz, np.int32)
+    bm = np.ascontiguousarray(bitmap, np.uint8)
+    vv = np.ascontiguousarray(vals12, np.uint8)
+    sh = np.ascontiguousarray(shifts, np.int32)
+    offs = np.empty(B + 1, np.int64)
+    cap = int(B) * (3 * Apad * Apad + 3 * Apad + 80) + 64
+    arena = np.empty(cap, np.uint8)
+    r = lib.r16_serialize_o1_sparse12_batch(
+        al.ctypes.data_as(_u8p), az.ctypes.data_as(_i32p),
+        bm.ctypes.data_as(_u8p), vv.ctypes.data_as(_u8p),
+        sh.ctypes.data_as(_i32p), B, Apad, bm.shape[1], vv.shape[1],
+        arena.ctypes.data_as(_u8p), cap, offs.ctypes.data_as(_i64p))
+    if r in _SPARSE12_ERRORS:
+        raise ValueError(f"serialize_o1_sparse12: {_SPARSE12_ERRORS[r]}")
     if r < 0:
         return None
     return _split_arena(arena, offs)

@@ -2815,7 +2815,11 @@ API int64_t r16_serialize_o1_dense_batch(
  * sanity, ADVICE r3), then emits the byte-identical header of
  * r16_build_tables_o1_dense.  This replaces the numpy sparse unpack
  * (measured 8.8 s at B=12288, A=48 on this 1-core host — the reason
- * the 28 MB 's12' transport lost to the 42.5 MB 'p12' in round 4). */
+ * the 28 MB 's12' transport lost to the 42.5 MB 'p12' in round 4).
+ * Returns the arena bytes used, or -1 (arena too small), -2 (bad
+ * alphabet size / no memory), -3 (value prefix narrower than a row's
+ * nonzero count), -4 (a context row not normalised), -5 (a bitmap bit
+ * set past the Apad*Apad entries). */
 API int64_t r16_serialize_o1_sparse12_batch(
         const uint8_t *alphas,      /* (B, Apad) sorted, last-padded */
         const int32_t *asz,         /* (B,) true alphabet sizes      */
@@ -2854,7 +2858,7 @@ API int64_t r16_serialize_o1_sparse12_batch(
                 int bit = __builtin_ctz(bits);
                 bits &= bits - 1;
                 int e = e8 * 8 + bit;
-                if (e >= E) return -3;             /* pad bit set */
+                if (e >= E) return -5;             /* pad bit set */
                 if (r >= maxv) return -3;          /* prefix too narrow */
                 const uint8_t *p3 = vp + (r >> 1) * 3;
                 uint32_t v = (r & 1)

@@ -177,13 +177,16 @@ def streams_to_reference(states: torch.Tensor, words: torch.Tensor,
     return st, out, cn
 
 
-def words_forward(words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def words_forward(words: torch.Tensor, counts: torch.Tensor,
+                  width: int | None = None) -> torch.Tensor:
     """The 4x16 encoder's words (each block's stream at the end of its
     row) -> (B, W') int16 on the same device with each stream at the
     start of its row and zeros past it, W' = max count (at least 1):
-    what the decoders read."""
+    what the decoders read.  ``width`` sets W' instead (the row width
+    keeps every stream and needs no copy of the counts to the host)."""
     B, cap = words.shape
-    W = max(int(counts.max()) if B else 0, 1)
+    W = width if width is not None else max(
+        int(counts.max()) if B else 0, 1)
     i = torch.arange(W, device=words.device)[None, :]
     n = counts.to(torch.int64)[:, None]
     src = (cap - n + i).clamp(max=cap - 1)

@@ -25,13 +25,21 @@ RANS8_L = 1 << 23
 SHIFT = 12
 
 
-def _enc8(blocks, alpha, packed, order: int, device):
+def _enc8_tensors(blocks, alpha, packed, order: int, dev):
+    """The batch encode's (states, bytes, counts) tensors on ``dev``
+    (``rans8_vmem.rans8_enc``'s layout), queued on its current stream and
+    not yet copied back."""
     from . import convert, rans8_vmem
-    dev = check_device(device)
     blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
-    st, by, cnt = rans8_vmem.enc_batch(convert._tensor(blocks, dev), alpha,
-                                       packed, order)
-    return convert.streams8_to_reference(st, by, cnt)
+    return rans8_vmem.enc_batch(convert._tensor(blocks, dev), alpha, packed,
+                                order)
+
+
+def _enc8(blocks, alpha, packed, order: int, device):
+    from . import convert
+    dev = check_device(device)
+    return convert.streams8_to_reference(
+        *_enc8_tensors(blocks, alpha, packed, order, dev))
 
 
 def enc_o0_batch(blocks: np.ndarray, alpha, packed, device="cuda"):
@@ -45,14 +53,21 @@ def enc_o1_batch(blocks: np.ndarray, alpha, packed, device="cuda"):
     return _enc8(blocks, alpha, packed, 1, device)
 
 
-def _dec8(states, stream, out_sz: int, alpha, packed, order: int, device,
-          counts):
+def _dec8_tensor(states, stream, out_sz: int, alpha, packed, order: int,
+                dev, counts=None):
+    """The batch decode as a (B, out_sz) uint8 tensor on ``dev``, queued
+    on its current stream and not yet copied back."""
     from . import convert, rans8_vmem
-    dev = check_device(device)
     tables = convert.tables8_from_reference(alpha, packed, dev)
     st, by, cnt = convert.streams8_from_reference(states, stream, dev, counts)
-    out = rans8_vmem.dec_batch(st, by, cnt, tables, out_sz, order)
-    return out.cpu().numpy()
+    return rans8_vmem.dec_batch(st, by, cnt, tables, out_sz, order)
+
+
+def _dec8(states, stream, out_sz: int, alpha, packed, order: int, device,
+          counts):
+    dev = check_device(device)
+    return _dec8_tensor(states, stream, out_sz, alpha, packed, order, dev,
+                        counts).cpu().numpy()
 
 
 def dec_o0_batch(states, stream, out_sz: int, alpha, packed, device="cuda",

@@ -281,14 +281,21 @@ def check_device(device) -> torch.device:
     return dev
 
 
-def _dec_batch(states, words, out_sz: int, alpha, packed, shift, order: int,
-               device, counts):
+def _dec_tensor(states, words, out_sz: int, alpha, packed, shift,
+                order: int, dev, counts=None) -> torch.Tensor:
+    """The batch decode as a (B, out_sz) uint8 tensor on ``dev``, queued
+    on its current stream and not yet copied back."""
     from . import convert, rans_vmem
-    dev = check_device(device)
     tables = convert.tables_from_reference(alpha, packed, shift, dev)
     st, wd, cnt = convert.streams_from_reference(states, words, dev, counts)
-    out = rans_vmem.rans16_dec(st, wd, cnt, tables, out_sz, order)
-    return out.cpu().numpy()
+    return rans_vmem.rans16_dec(st, wd, cnt, tables, out_sz, order)
+
+
+def _dec_batch(states, words, out_sz: int, alpha, packed, shift, order: int,
+               device, counts):
+    dev = check_device(device)
+    return _dec_tensor(states, words, out_sz, alpha, packed, shift, order,
+                       dev, counts).cpu().numpy()
 
 
 def dec_o1_batch(states, words, out_sz: int, alpha, packed, shift,

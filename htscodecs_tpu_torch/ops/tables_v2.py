@@ -38,8 +38,11 @@ Serialised headers come from one batched native call
 pre-shift normalised frequencies (``fhdr``), which are held as int16
 on the device (values <= 4096) and become uint16 numpy on the host.
 
-Left for the streaming slice: the JAX module's 12-bit header transport
-(``pack_freqs12`` / ``pack_freqs_sparse12`` and their host unpackers).
+The 12-bit header transport (``pack_freqs12``, ``pack_freqs_sparse12``)
+packs the header frequencies on the device before they are copied to
+the host (the stream encoder's ``hdr="s12"``), in PyTorch operations as
+the JAX package's are plain ``jax.jit`` functions; the host unpackers
+are numpy.
 """
 
 from __future__ import annotations
@@ -97,8 +100,16 @@ def _log_consts():
     return l10, l12, A_e, B_e
 
 
+@functools.lru_cache(maxsize=None)
 def _consts_on(dev):
-    return tuple(torch.from_numpy(c).to(dev) for c in _log_consts())
+    """The log tables on ``dev``, copied there once: a copy from
+    pageable memory waits for the work queued on the stream, so a copy
+    per build would hold the host until the build's own histogram is
+    done.  The first copy is waited for, so any stream may read them."""
+    out = tuple(torch.from_numpy(c).to(dev) for c in _log_consts())
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -487,3 +498,127 @@ def build_o0_device(blocks, tile: int = TILE, device="cuda"):
     alpha_d, packed, fhdr, asz = (
         outs[0] if len(outs) == 1 else [torch.cat(o) for o in zip(*outs)])
     return alpha_d, packed, asz.cpu().numpy(), fhdr_to_host(fhdr), A
+
+
+# ---------------------------------------------------------------------------
+# 12-bit header-frequency transport (a smaller device -> host copy for the
+# header serialiser)
+#
+# The order-1 header serialiser needs only the normalised per-context
+# frequency values on the host; the (B, A, A) copy is transport.  Values
+# are <= 1 << shift <= 4096, so 12 bits per entry (3 bytes per pair) move
+# 25 % less than 16.  The one 13-bit value, 4096 (a one-symbol context
+# row normalised to the full 1 << 12), is stored as 4095: every context
+# row is normalised to a power-of-two total <= 1 << shift, so a row that
+# sums to exactly 4095 cannot occur, and the host restores its largest
+# entry to 4096.  The sparse form ships a presence bitmap and only the
+# nonzero values, compacted to the front of each row, so the host can
+# copy a prefix as wide as the batch's largest nonzero count.
+
+def _pack12(v: torch.Tensor) -> torch.Tensor:
+    """(B, E) int32 values < 4096 -> (B, 3*ceil(E/2)) uint8, two values
+    per three bytes (low byte, low nibble of the high part beside the
+    second value's low nibble, the second value's high byte)."""
+    if v.shape[1] % 2:
+        v = torch.nn.functional.pad(v, (0, 1))
+    v0 = v[:, 0::2]
+    v1 = v[:, 1::2]
+    b0 = v0 & 0xFF
+    b1 = (v0 >> 8) | ((v1 & 0xF) << 4)
+    b2 = v1 >> 4
+    return torch.stack([b0, b1, b2], dim=2).reshape(v.shape[0], -1) \
+        .to(torch.uint8)
+
+
+def _wrap12(fhdr: torch.Tensor) -> torch.Tensor:
+    """(B, A, A) header frequencies -> (B, A*A) int32 with 4096 -> 4095."""
+    v = fhdr.reshape(fhdr.shape[0], -1).to(torch.int32)
+    return v - (v == 4096).to(torch.int32)
+
+
+def pack_freqs12(fhdr: torch.Tensor) -> torch.Tensor:
+    """(B, A, A) normalised header frequencies (any integer type, e.g.
+    the table build's int16) -> (B, 3*ceil(A*A/2)) uint8 on their device."""
+    return _pack12(_wrap12(fhdr))
+
+
+def pack_freqs_sparse12(fhdr: torch.Tensor):
+    """(B, A, A) header frequencies -> (bitmap (B, ceil(E/8)) uint8,
+    vals12 (B, 3*ceil(E/2)) uint8 with each row's nonzero values packed
+    first, counts (B,) int32, maxnz () int32), E = A*A, all on the
+    device.  The bitmap is LSB-first within each byte.  The nonzeros
+    move to the front of their row by one stable sort on the int32 key
+    ``where(nz, position, E) * 8192 + value`` (E <= 96^2, so the key
+    fits)."""
+    B = fhdr.shape[0]
+    v = _wrap12(fhdr)
+    E = v.shape[1]
+    nz = v > 0
+    E8 = -(-E // 8) * 8
+    bits = torch.nn.functional.pad(nz.to(torch.int32), (0, E8 - E))
+    w = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
+                     device=v.device)
+    bitmap = (bits.view(B, E8 // 8, 8) * w).sum(dim=2).to(torch.uint8)
+    iota = torch.arange(E, dtype=torch.int32, device=v.device)[None, :]
+    key = torch.where(nz, iota, torch.full_like(iota, E)) * 8192 + v
+    svals = torch.sort(key, dim=1, stable=True).values & 8191
+    counts = nz.sum(dim=1, dtype=torch.int32)
+    return bitmap, _pack12(svals), counts, counts.max()
+
+
+def _unpack12(pk: np.ndarray) -> np.ndarray:
+    p = pk.reshape(pk.shape[0], -1, 3).astype(np.uint16)
+    v0 = p[:, :, 0] | ((p[:, :, 1] & 0xF) << 8)
+    v1 = (p[:, :, 1] >> 4) | (p[:, :, 2] << 4)
+    return np.stack([v0, v1], axis=2).reshape(pk.shape[0], -1)
+
+
+def _restore_rows(v: np.ndarray, name: str) -> np.ndarray:
+    """Restore each wrapped 4096 (a row summing to 4095) and check that
+    every row is normalised: all zero, or a power-of-two total <= 4096.
+    A non-normalised input would otherwise corrupt silently through the
+    wrap."""
+    rs = v.sum(axis=2, dtype=np.int64)
+    fix = rs == 4095
+    if fix.any():
+        bi, ri = np.nonzero(fix)
+        idx = v[bi, ri].argmax(axis=1)
+        v[bi, ri, idx] += 1
+        rs[fix] += 1
+    bad = (rs != 0) & ((rs & (rs - 1)) != 0) | (rs > 4096)
+    if bad.any():
+        b0, r0 = np.argwhere(bad)[0]
+        raise ValueError(
+            f"{name}: context row sum is not a power of two <= 4096 "
+            f"(block {b0}, row {r0}, sum {int(rs[b0, r0])})")
+    return v
+
+
+def unpack_freqs12_host(pk: np.ndarray, A: int) -> np.ndarray:
+    """Invert pack_freqs12 on the host: (B, 3*ceil(A*A/2)) u8 -> (B, A,
+    A) u16, restoring any 4096 entry from the row-sum deficit."""
+    B = pk.shape[0]
+    v = _unpack12(pk)[:, :A * A]
+    v = np.ascontiguousarray(v.reshape(B, A, A))
+    return _restore_rows(v, "unpack_freqs12")
+
+
+def unpack_freqs_sparse12_host(bitmap: np.ndarray, vals12: np.ndarray,
+                               A: int) -> np.ndarray:
+    """Invert pack_freqs_sparse12 on the host: vals12 may be any prefix
+    of the packed value rows wide enough for the batch's max count."""
+    B = bitmap.shape[0]
+    E = A * A
+    bits = np.unpackbits(bitmap, axis=1, bitorder="little")[:, :E]
+    counts = bits.sum(axis=1).astype(np.int64)
+    sv = _unpack12(vals12)
+    if int(counts.max(initial=0)) > sv.shape[1]:
+        raise ValueError("unpack_freqs_sparse12: prefix narrower than "
+                         "the batch's max nonzero count")
+    # position e holds its row's (rank of e among the nonzeros)'th value
+    ranks = bits.cumsum(axis=1, dtype=np.int32) - 1
+    np.maximum(ranks, 0, out=ranks)
+    v = np.take_along_axis(sv, ranks, axis=1)
+    v[bits == 0] = 0
+    v = np.ascontiguousarray(v.reshape(B, A, A))
+    return _restore_rows(v, "unpack_freqs_sparse12")

@@ -73,6 +73,13 @@ def test_import_walk_reaches_the_name_codec_and_the_tools():
         assert f"htscodecs_tpu_torch.{mod}" in names
 
 
+def test_import_walk_reaches_the_parallel_modules():
+    names = _walked()
+    for mod in ("parallel", "parallel.streaming", "parallel.pipeline",
+                "parallel.distributed", "ops.rans_jax"):
+        assert f"htscodecs_tpu_torch.{mod}" in names
+
+
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
