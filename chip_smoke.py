@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (htscodecs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--blocks B] [--quick] [--ab DIR]
+    python3 chip_smoke.py [--blocks B] [--quick] [--ab DIR] [--fuzz-only]
 
 Needs one CUDA device, ``nvcc`` and a host C compiler; no network.
 What it does, in order (any failure exits non-zero):
@@ -37,7 +37,28 @@ What it does, in order (any failure exits non-zero):
    (max-symbol byte 0) and blocks whose range-coder payload is 5 bytes
    (they decode to zeros, as in the reference) go through the arith
    batch entries;
-3. drives the main paths at full width through the entry points a user
+3. ``fuzz_paths``: corrupt streams through every decoder entry on the
+   card (``engine="device"``, ``device="cuda"``): seeded batches of 64
+   and 130 blocks from the port's own encoders (rANS 4x16 orders 0, 1,
+   9 and 193 and rANS 4x8 orders 0 and 1 on 4 KiB blocks, one 4x8
+   batch over 150 symbols, arith orders 0 and 1 on 1 KiB blocks, one of
+   them over 256 symbols; the 4x16 orders 0/1 also through the
+   decoder's packed entry by ``dec_fn``), every third member bit-flipped
+   past its size field, overwritten in its first 32 bytes, cut, or
+   claiming 2 or 4 times its size; one Illumina tok3 block cut, flipped
+   and overwritten 48 ways; one 4x8 member claiming 2**31 bytes, which
+   must be refused.  Each call must return or raise ValueError, intact
+   members must equal their blocks (decoded alone, and with the corrupt
+   members the host coder accepts, where the call raised), every launch
+   of rans16_dec (both entries), rans8_dec and arith_dec must equal its
+   plain version on the same inputs (tolerance 0) and its reruns with
+   random bytes around every input, and each of the three kernels must
+   have run on a batch with corrupt members.  A memcheck pass runs the
+   phase at a quarter of its size under ``compute-sanitizer --tool
+   memcheck`` (beside ``nvcc``) first: a missing sanitizer fails the
+   run, a device it refuses is recorded (``fuzz_paths`` line;
+   ``--fuzz-only`` runs this phase alone);
+4. drives the main paths at full width through the entry points a user
    calls, the launch counts set to 0 just before each and read just
    after: ``batch.compress_blocks`` then ``batch.uncompress_blocks``
    (rANS 4x16) on B = 4096 blocks of 64 KiB of 4-symbol quality data at
@@ -92,7 +113,7 @@ What it does, in order (any failure exits non-zero):
    them.  Every block must round-trip, a spread
    sample of streams must be byte-identical to the host coder's,
    and exactly the kernels of each path must have been launched;
-4. profiles one more pass of each order-1 main path, of the order-9
+5. profiles one more pass of each order-1 main path, of the order-9
    transform path and of one "device" tok3 encode (host seconds by
    function), then, at the shapes the
    main path gave each kernel,
@@ -2224,6 +2245,358 @@ def run_distributed_paths(B):
     return res
 
 
+# ---------------------------------------------------------------------------
+# fuzz_paths: corrupt streams through every decoder kernel
+
+class Taps:
+    """While active, every launch of a decoder kernel is recorded: its
+    inputs and its output.  The wrappers are replaced where their callers
+    look them up at call time (``rans_v2`` calls ``rans_vmem.rans16_dec``,
+    ``rans_pallas`` imported ``rans16_dec_packed`` by name, the 4x8 and
+    arith batch functions call their module's own wrapper)."""
+
+    SITES = (("rans16_dec", rans_vmem), ("rans16_dec_packed", rans_pallas),
+             ("rans8_dec", rans8_vmem), ("arith_dec", arith_vmem))
+
+    def __enter__(self):
+        self.calls = []
+        self._orig = {}
+        for name, mod in self.SITES:
+            orig = getattr(mod, name)
+            self._orig[name] = (mod, orig)
+            setattr(mod, name, functools.partial(self._call, name, orig))
+        return self
+
+    def _call(self, name, orig, *args, **kw):
+        out = orig(*args, **kw)
+        self.calls.append((name, args, out))
+        return out
+
+    def __exit__(self, *exc):
+        for name, (mod, orig) in self._orig.items():
+            setattr(mod, name, orig)
+        return False
+
+
+def plain_of(name, args):
+    """The plain version's output on a recorded launch's inputs (the
+    launch arguments that change no result dropped)."""
+    if name == "rans16_dec":
+        return rans_vmem._rans16_dec_plain(*args[:6])
+    if name == "rans16_dec_packed":
+        st, wd, pk, al, shift, N, order = args[:7]
+        sv = rans_vmem._shift_vector(shift, st.shape[0], st.device, name)
+        return rans_vmem._rans16_dec_packed_plain(st, wd, pk, al, sv, N,
+                                                  order)
+    if name == "rans8_dec":
+        return rans8_vmem._rans8_dec_plain(*args[:6])
+    return arith_vmem._arith_dec_plain(*args[:7])
+
+
+POISON_PAD = 4096       # bytes of random fill on each side of an input
+
+
+def poisoned(x, gen):
+    """A copy of tensor x (or of each tensor of a Tables) placed in the
+    middle of a buffer whose margins hold random bytes: a read past the
+    input's allocation that reaches the output then shows as a change."""
+    if isinstance(x, convert.Tables):
+        return convert.Tables(*(poisoned(t, gen) for t in x))
+    if not isinstance(x, torch.Tensor):
+        return x
+    es = x.element_size()
+    pad = POISON_PAD // es
+    n = x.numel()
+    raw = torch.randint(0, 256, ((n + 2 * pad) * es,), generator=gen,
+                        dtype=torch.uint8).to(x.device)
+    buf = raw.view(x.dtype)
+    buf[pad:pad + n].copy_(x.reshape(-1))
+    return buf[pad:pad + n].view(x.shape)
+
+
+def check_taps(label, taps, gen, stats):
+    """(c): each recorded launch equals its plain version (tolerance 0)
+    and two reruns with poisoned margins around every input."""
+    torch.cuda.synchronize()
+    for name, args, out in taps.calls:
+        want = plain_of(name, args)
+        if not torch.equal(out, want):
+            err = int((out.int() - want.int()).abs().max())
+            fail(f"fuzz {label}: {name} != plain (max abs err {err}) at "
+                 f"B={out.shape[0]} N={out.shape[1]}")
+        fn = getattr(dict(Taps.SITES)[name], name)     # the wrapper itself
+        for _ in range(2):
+            again = fn(*(poisoned(a, gen) for a in args))
+            torch.cuda.synchronize()
+            if not torch.equal(again, out):
+                fail(f"fuzz {label}: {name} changed with random bytes "
+                     f"around its inputs (a read past an input)")
+            stats["poisoned_reruns"] += 1
+        stats["kernel_vs_plain_groups"][name] += 1
+
+
+def _size_field_end(codec, s):
+    return 9 if codec is R4X8 else varint.get_uint(s, 1, len(s))[1]
+
+
+def with_claim(codec, s, osz):
+    """Stream s with its size field rewritten to claim osz bytes."""
+    if codec is R4X8:
+        return s[:5] + int(osz).to_bytes(4, "little") + s[9:]
+    head = bytearray(s[:1])
+    varint.put_uint(head, int(osz))
+    return bytes(head) + s[_size_field_end(codec, s):]
+
+
+FUZZ_KINDS = ("flip", "store", "cut", "claim")
+
+
+def corrupt_members(codec, streams, rng, claim):
+    """Every third member: bit flips anywhere past the order byte and the
+    size field (table headers included), a byte stored in the 32 bytes
+    after the size field, a cut, or the size claim raised to ``claim``
+    (the same for the batch, so that those members form one group).
+    Returns (streams, {member: kind})."""
+    bad, hit = list(streams), {}
+    for k in range(0, len(streams), 3):
+        s = bytearray(streams[k])
+        h = _size_field_end(codec, s)
+        kind = FUZZ_KINDS[k // 3 % len(FUZZ_KINDS)]
+        if len(s) <= h + 2:
+            continue
+        if kind == "flip":
+            for _ in range(int(rng.integers(1, 4))):
+                s[int(rng.integers(h, len(s)))] ^= 1 << int(rng.integers(0, 8))
+        elif kind == "store":
+            s[int(rng.integers(h, min(len(s), h + 32)))] = \
+                int(rng.integers(0, 256))
+        elif kind == "cut":
+            s = s[:int(rng.integers(h + 1, len(s)))]
+        else:
+            s = bytearray(with_claim(codec, bytes(s), claim))
+        bad[k] = bytes(s)
+        hit[k] = kind
+    return bad, hit
+
+
+def fuzz_batches(rnd, B, seed):
+    """(label, codec, order, blocks) of one round: B blocks of 4 KiB
+    (rANS) or 1 KiB (arith: its plain version steps one byte at a
+    time)."""
+    q = testdata.synth_quality(B, 4096, seed=seed)
+    qa = testdata.synth_quality(B, 1024, seed=seed + 1)
+    w = testdata.arith_blocks(B, 1024, 256, seed=seed + 2)[0]
+    out = [(f"rans4x16 o{o}", R4X16, o, q) for o in (0, 1, 9, 193)]
+    out += [(f"rans4x8 o{o}", R4X8, o, q) for o in (0, 1)]
+    if rnd == 0:
+        # an alphabet above 128: the 4x8 batch layer's dense tables stop
+        # at 96, so these blocks take the host coder both ways
+        out.append(("rans4x8 o1 wide150", R4X8, 1,
+                    testdata.synth_wide(max(B // 8, 4), 4096, 150,
+                                        seed=seed + 3)))
+    out += [(f"arith o{o}", ARITH, o, qa) for o in (0, 1)]
+    out.append(("arith o1 width256" if rnd == 0 else "arith o0 width256",
+                ARITH, 1 - rnd, w))
+    return out
+
+
+HOST_DECODE = {"rans4x16": rans4x16.uncompress, "rans4x8": rans4x8.uncompress,
+               "arith": arith.uncompress}
+
+
+def host_accepts(codec, s) -> bool:
+    try:
+        HOST_DECODE[codec.name](s)
+    except ValueError:
+        return False
+    return True
+
+
+def fuzz_call(label, decode, streams, corrupt, gen, stats):
+    """One entry-point call, the launch counts set to 0 before it and
+    read after: (a) it returns or raises ValueError, nothing else; (c)
+    every launch it made equals its plain version.  Returns the output,
+    or None where it raised."""
+    rans_vmem.reset_launches()
+    with Taps() as taps:
+        try:
+            out = decode(streams)
+        except ValueError:
+            out = None
+        except Exception as e:          # noqa: BLE001 (the contract)
+            fail(f"fuzz {label}: {type(e).__name__} where a ValueError or "
+                 f"bytes were due: {e}")
+    launches = {k: v for k, v in rans_vmem.LAUNCHES.items() if v}
+    check_taps(label, taps, gen, stats)
+    for k, v in launches.items():
+        stats["launches"][k] += v
+        if corrupt:
+            stats["launches_with_corrupt"][k] += v
+    stats["raised" if out is None else "decoded"] += 1
+    return out
+
+
+def fuzz_decode(label, codec, decode, bad, blocks, hit, gen, stats):
+    """A batch with corrupt members through one entry point.  (b) intact
+    members equal their blocks.  Where the call raised (a member the
+    host coder refuses aborts it), the intact members decode alone, and
+    then together with the corrupt members the host coder accepts
+    (payload flips, raised claims), which so reach the kernels."""
+    N = blocks.shape[1]
+    stats["corrupt_members"] += len(hit)
+    members = list(range(len(bad)))
+    out = fuzz_call(label, decode, bad, True, gen, stats)
+    if out is None:
+        intact = [k for k in range(len(bad)) if k not in hit]
+        alone = fuzz_call(label + " (intact alone)", decode,
+                          [bad[k] for k in intact], False, gen, stats)
+        if alone != [blocks[k].tobytes() for k in intact]:
+            fail(f"fuzz {label}: intact members did not decode alone")
+        members = sorted(intact + [k for k in hit
+                                   if host_accepts(codec, bad[k])])
+        out = fuzz_call(label + " (host-accepted)", decode,
+                        [bad[k] for k in members], len(members) > len(intact),
+                        gen, stats)
+        if out is None:
+            return
+    for pos, k in enumerate(members):
+        if k not in hit and out[pos] != blocks[k].tobytes():
+            fail(f"fuzz {label}: intact member {k} differs from its block")
+        if k in hit and len(out[pos]) > 4 * N:
+            fail(f"fuzz {label}: member {k} decoded to {len(out[pos])} "
+                 f"bytes, more than it claims")
+
+
+def packed_route(o, osz, states, words, alpha, packed, shift):
+    """dec_fn of uncompress_blocks: every 4x16 group through the
+    rans_pallas engine, the decoder's packed entry."""
+    f = rans_pallas.dec_o1_batch if o else rans_pallas.dec_o0_batch
+    return f(states, words, osz, alpha, packed, shift, device=DEV)
+
+
+def fuzz_tok3(rng, stats):
+    """One Illumina block of 10000 names at level 9, cut, flipped and
+    overwritten 48 ways, through ``tok3.decode_names`` on the card."""
+    blk = testdata.synth_names(10000, "illumina", seed=5)
+    s = tok3.encode_names(blk, 9, False, device=DEV)
+    res = {"variants": 0, "raised": 0, "decoded": 0}
+    for v in range(48):
+        m = bytearray(s)
+        if v % 3 == 0:
+            m = m[:int(rng.integers(1, len(m)))]
+        elif v % 3 == 1:
+            for _ in range(int(rng.integers(1, 4))):
+                m[int(rng.integers(0, len(m)))] ^= 1 << int(rng.integers(0, 8))
+        else:
+            m[int(rng.integers(0, min(len(m), 32)))] = int(rng.integers(0, 256))
+        try:
+            tok3.decode_names(bytes(m), device=DEV)
+            res["decoded"] += 1
+        except ValueError:
+            res["raised"] += 1
+        except Exception as e:          # noqa: BLE001 (the contract)
+            fail(f"fuzz tok3: {type(e).__name__}: {e}")
+        res["variants"] += 1
+    stats["tok3"] = res
+
+
+def run_fuzz_paths(scale: int = 1) -> dict:
+    """Corrupt streams from the port's own encoders through every
+    decoder entry on the card.  ``scale`` divides the batch sizes (the
+    memcheck pass runs at a quarter)."""
+    from collections import Counter
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    stats = {"rounds": 0, "batches": 0, "corrupt_members": 0, "raised": 0,
+             "decoded": 0, "launches": Counter(),
+             "launches_with_corrupt": Counter(),
+             "kernel_vs_plain_groups": Counter(), "poisoned_reruns": 0}
+    for rnd, (B, claim_x) in enumerate(((130, 4), (64, 2))):
+        B = max(B // scale, 8)
+        rng = np.random.default_rng(100 + rnd)
+        for label, codec, order, blocks in fuzz_batches(rnd, B, 200 + rnd):
+            N = blocks.shape[1]
+            streams = codec.compress(blocks, order=order, engine="device",
+                                     device=DEV)
+            bad, hit = corrupt_members(codec, streams, rng, claim_x * N)
+            label = f"round {rnd} {label} B={B}"
+            fuzz_decode(label, codec, lambda x: codec.uncompress(
+                x, engine="device", device=DEV), bad, blocks, hit, gen, stats)
+            if codec is R4X16 and order in (0, 1):
+                fuzz_decode(label + " packed entry", codec,
+                            lambda x: batch.uncompress_blocks(
+                                x, engine="device", device=DEV,
+                                dec_fn=packed_route),
+                            bad, blocks, hit, gen, stats)
+            stats["batches"] += 1
+        stats["rounds"] += 1
+    # a 4x8 claim of 2**31 bytes on a single-member group: refused
+    one = batch.r4x8_compress_blocks(testdata.synth_quality(1, 4096, seed=7),
+                                     order=1, engine="device", device=DEV)
+    try:
+        batch.r4x8_uncompress_blocks([with_claim(R4X8, one[0], 2**31)],
+                                     engine="device", device=DEV)
+        fail("fuzz: a 4x8 claim of 2**31 bytes was not refused")
+    except ValueError:
+        stats["claim_2_31_r4x8"] = "refused (ValueError, as the host coder)"
+    fuzz_tok3(np.random.default_rng(300), stats)
+    torch.cuda.synchronize()            # no sticky error left behind
+    for k in ("rans16_dec", "rans8_dec", "arith_dec"):
+        if stats["launches_with_corrupt"][k] < 1:
+            fail(f"fuzz: {k} never ran on a batch with corrupt members")
+    stats["seconds"] = time.perf_counter() - t0
+    return {k: dict(v) if isinstance(v, Counter) else v
+            for k, v in stats.items()}
+
+
+def sanitizer_path() -> Path:
+    """compute-sanitizer beside the nvcc that cuda_build uses."""
+    return Path(cuda_build._nvcc()).resolve().parent / "compute-sanitizer"
+
+
+def run_memcheck_pass() -> dict:
+    """The fuzz phase again at a quarter of its size, in a subprocess
+    under ``compute-sanitizer --tool memcheck``: it sees reads out of
+    bounds that return no error.  The sanitizer missing fails the run; a
+    machine whose device it refuses ("Device not supported") is
+    recorded as such."""
+    cs = sanitizer_path()
+    if not cs.exists():
+        fail(f"fuzz: compute-sanitizer not found at {cs}")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [str(cs), "--tool", "memcheck", "--error-exitcode", "1",
+         sys.executable, str(Path(__file__).resolve()), "--fuzz-only",
+         "--fuzz-scale", "4", "--no-memcheck"],
+        capture_output=True, text=True, timeout=900)
+    text = r.stdout + r.stderr
+    res = {"sanitizer": str(cs), "rc": r.returncode,
+           "seconds": time.perf_counter() - t0}
+    if "Device not supported" in text:
+        res["status"] = "device not supported by compute-sanitizer"
+        res["errors"] = None
+        return res
+    import re
+    m = re.search(r"ERROR SUMMARY: (\d+) error", text)
+    res["errors"] = int(m.group(1)) if m else None
+    res["status"] = "ran"
+    if r.returncode != 0 or res["errors"] != 0:
+        print(text[-6000:], flush=True)
+        fail(f"fuzz: the memcheck pass failed: {res}")
+    return res
+
+
+def fuzz_paths(memcheck: bool = True, scale: int = 1) -> dict:
+    """The memcheck pass first (the slow one), then the phase at full
+    size; prints the ``fuzz_paths`` line."""
+    mc = run_memcheck_pass() if memcheck else None
+    res = run_fuzz_paths(scale)
+    res["memcheck"] = mc
+    log(f"fuzz paths: {res}")
+    print(json.dumps({"fuzz_paths": res}), flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--blocks", type=int, default=4096,
@@ -2235,6 +2608,14 @@ def main() -> None:
                          "script starts these itself)")
     ap.add_argument("--dist-dir", metavar="DIR",
                     help="the distributed phase's rendezvous directory")
+    ap.add_argument("--fuzz-only", action="store_true",
+                    help="run only the fuzz_paths phase (corrupt streams "
+                         "through every decoder kernel)")
+    ap.add_argument("--fuzz-scale", type=int, default=1,
+                    help="divide the fuzz_paths phase's batch sizes")
+    ap.add_argument("--no-memcheck", action="store_true",
+                    help="skip the fuzz_paths phase's memcheck pass (the "
+                         "pass itself runs the phase so)")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time arith_enc, arith_dec, rans8_enc, "
                          "rans8_dec, rc_enc and the 4x16 encoder and "
@@ -2273,6 +2654,13 @@ def main() -> None:
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "error" in line or "warning" in line:
             print("    " + line.strip())
+    if args.fuzz_only:
+        fuzz_paths(not args.no_memcheck, args.fuzz_scale)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     t = time.perf_counter()
     rans_vmem.reset_launches()
@@ -2286,6 +2674,9 @@ def main() -> None:
     print(json.dumps({"kernels_vs_plain": [
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
+
+    # corrupt streams through every decoder entry, and its memcheck pass
+    fuzz = fuzz_paths(not args.no_memcheck)
 
     # ---- the main paths, full width ----
     B, N = args.blocks, 65536
@@ -2431,6 +2822,7 @@ def main() -> None:
     print(json.dumps({"stream_paths": stream_paths}), flush=True)
     print(json.dumps({"roundtrip_step": roundtrip}), flush=True)
     print(json.dumps({"distributed_paths": dist_paths}), flush=True)
+    print(json.dumps({"fuzz_paths": fuzz}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -560,7 +560,9 @@ def _peel_wrapper(s: bytes, out_size):
             if out_size is None:
                 return None
             osz = out_size
-        if out_size is not None and osz > out_size:
+        # a claim the host coder refuses (rans4x16._uncompress_o0/o1)
+        # would otherwise size a device group at 2 GiB or more a block
+        if osz >= 2**31 - 1 or (out_size is not None and osz > out_size):
             return None
         tmp1_size = osz
 
@@ -991,8 +993,9 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
                            device="cuda", dec_fn=None) -> list[bytes]:
     """Decompress a sequence of rANS 4x8 streams, batching the payload
     scans of each (order, out size) group onto the device.  Short,
-    malformed or wide-alphabet streams go to ``rans4x8.uncompress``,
-    which raises ValueError on a corrupt stream.
+    malformed or wide-alphabet streams, and claims of 2**31 - 1 bytes or
+    more, go to ``rans4x8.uncompress``, which raises ValueError on a
+    corrupt stream.
 
     dec_fn: optional decode-group engine ``(order01, osz, states (B,4)
     u32, stream (B,W) u8 zero-padded, alpha, packed) -> (B, osz) u8 |
@@ -1002,10 +1005,14 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
     out: list[bytes | None] = [None] * len(streams)
     groups: dict[tuple, list] = defaultdict(list)
     for i, s in enumerate(streams):
-        if len(s) < 9 or s[0] not in (0, 1) or engine == "host":
+        osz = int.from_bytes(s[5:9], "little")
+        # a claim of 2**31 - 1 bytes or more goes to the host coder,
+        # which refuses it (ValueError), as it would size a device group
+        # at 2 GiB or more a block
+        if (len(s) < 9 or s[0] not in (0, 1) or engine == "host"
+                or osz >= 2**31 - 1):
             out[i] = rans4x8.uncompress(s)
             continue
-        osz = int.from_bytes(s[5:9], "little")
         groups[(s[0], osz)].append((i, s))
     for (order, osz), items in groups.items():
         parsed = None
@@ -1151,9 +1158,10 @@ def fqz_compress_blocks(jobs, engine: str = "auto",
     return _pmap(one, jobs)
 
 
-def fqz_decompress_blocks(streams) -> list[bytes]:
+def fqz_decompress_blocks(streams, engine: str = "auto") -> list[bytes]:
     """Decompress many fqzcomp_qual streams on the host, over the thread
     pool: the context of a symbol depends on the symbols decoded before
     it, so there is no batched decode (the JAX package has none either)
-    and the call needs no device."""
+    and the call needs no device.  ``engine`` is accepted for the JAX
+    signature's sake and ignored, as there."""
     return _pmap(fqz.decompress, [bytes(s) for s in streams])

@@ -368,10 +368,13 @@ def fqz_compress_blocks(jobs, mesh=None, engine: str = "auto") -> list[bytes]:
     return batchmod.fqz_compress_blocks(jobs, engine=engine, device=mesh[0])
 
 
-def fqz_decompress_blocks(streams) -> list[bytes]:
+def fqz_decompress_blocks(streams, mesh=None,
+                          engine: str = "auto") -> list[bytes]:
     """fqzcomp_qual decompression on the host (as
-    ``models.batch.fqz_decompress_blocks``: no batched decode exists)."""
-    return batchmod.fqz_decompress_blocks(streams)
+    ``models.batch.fqz_decompress_blocks``: no batched decode exists).
+    ``mesh`` and ``engine`` are accepted for the JAX signature's sake
+    and ignored, as there."""
+    return batchmod.fqz_decompress_blocks(streams, engine=engine)
 
 
 def tok3_encode_blocks(blocks, level: int = 9, use_arith: bool = False,

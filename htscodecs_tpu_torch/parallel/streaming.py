@@ -36,7 +36,9 @@ tier of the TPU encode kernel, with its overflow retries) and
 ``_enc_vmem_padded`` (the batch padded to the kernel's 128-block
 tiles).  The CUDA encoder writes each block's words at the end of its
 own row, with no segment capacity to overflow, and takes any batch
-size.
+size.  ``hdr`` and ``device`` are keyword-only: the JAX signature has
+``seg_cap`` in the fourth place, so a positional call written for it,
+``StreamEncoder(1, 2, True, None)``, raises ``TypeError`` here.
 
 Reference: rANS_static4x16pr.c:378-494 (O0), :694-846 (O1); framing
 :1231-1240 with the CAT expansion fallback :1332-1337.
@@ -114,7 +116,8 @@ class StreamEncoder:
     """
 
     def __init__(self, order: int = 1, depth: int = 2,
-                 assemble: bool = True, hdr: str = "auto", device="cuda"):
+                 assemble: bool = True, *, hdr: str = "auto",
+                 device="cuda"):
         if order not in (0, 1):
             raise ValueError("StreamEncoder handles plain order 0/1")
         if hdr not in ("auto", "u16", "s12"):

@@ -167,6 +167,17 @@ def test_fqz_entries_round_trip_and_equal_the_host_coder(engine):
     assert back == ref_batch.fqz_decompress_blocks(got)
 
 
+@pytest.mark.parametrize("engine", ["auto", "device", "host"])
+def test_fqz_decompress_blocks_takes_the_jax_engine_keyword(engine):
+    """``engine=`` is part of the JAX signature; both packages ignore
+    it, as the decode is host-only."""
+    jobs = _fqz_jobs()[:2]
+    got = port_batch.fqz_compress_blocks(jobs, engine="host", device="cpu")
+    back = port_batch.fqz_decompress_blocks(got, engine=engine)
+    assert back == [j[0].tobytes() for j in jobs]
+    assert back == ref_batch.fqz_decompress_blocks(got, engine=engine)
+
+
 def test_fqz_a_refused_replay_sends_the_batch_to_the_host_coder(monkeypatch):
     jobs = _fqz_jobs()
     monkeypatch.setattr(port_native, "fqz_enc_replay", lambda *a, **k: None)

@@ -335,3 +335,14 @@ def test_two_process_gloo_group(tmp_path):
     assert res[0][0] == 0
     assert res[1][0] == res[0][2]
     assert res[0][1] == res[1][1] == res[0][2] + res[1][2]
+
+
+def test_fqz_decompress_blocks_takes_the_jax_mesh_and_engine_keywords():
+    """``mesh=`` and ``engine=`` are part of the JAX signature; the
+    decode is host-only, so both are accepted and ignored."""
+    jobs = [(np.arange(120, dtype=np.uint8) % 23 + 5, [60, 60])]
+    st = dist.fqz_compress_blocks(jobs, MESH, engine="host")
+    assert st == [ref_fqz.compress(jobs[0][0], jobs[0][1])]
+    for kw in ({"mesh": None, "engine": "auto"},
+               {"mesh": MESH, "engine": "device"}):
+        assert dist.fqz_decompress_blocks(st, **kw) == [jobs[0][0].tobytes()]

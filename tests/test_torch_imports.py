@@ -73,6 +73,45 @@ def test_import_walk_reaches_the_name_codec_and_the_tools():
         assert f"htscodecs_tpu_torch.{mod}" in names
 
 
+def test_import_walk_reaches_the_fuzz_runner():
+    assert "htscodecs_tpu_torch.native.fuzz" in _walked()
+
+
+_FUZZ_SEEDS = """
+import sys, tempfile
+from pathlib import Path
+from htscodecs_tpu_torch.native import fuzz
+with tempfile.TemporaryDirectory() as d:
+    n = fuzz.write_seeds(Path(d))
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "htscodecs_tpu" or m.startswith("htscodecs_tpu.")]
+print("SEEDS", n, "BAD", bad)
+"""
+
+
+def test_fuzz_runner_writes_its_seeds_without_jax():
+    """The runner's seed corpus comes from the port's own encoders: making
+    it loads neither jax nor the JAX package."""
+    r = subprocess.run([sys.executable, "-c", _FUZZ_SEEDS], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("SEEDS")][0]
+    assert line.endswith("BAD []"), line
+
+
+def test_fuzz_harness_includes_the_ports_own_host_kernels():
+    """fuzz_native.c fuzzes the copy of hostkernels.c beside it, and no C
+    source of the port names the JAX package's files."""
+    src = (PKG / "native" / "fuzz_native.c").read_text()
+    assert '#include "hostkernels.c"' in src
+    assert (PKG / "native" / "hostkernels.c").exists()
+    for c in (PKG / "native").glob("*.c"):
+        includes = [ln for ln in c.read_text().splitlines()
+                    if ln.startswith("#include")]
+        assert not any("htscodecs_tpu/" in ln for ln in includes), c
+
+
 def test_import_walk_reaches_the_parallel_modules():
     names = _walked()
     for mod in ("parallel", "parallel.streaming", "parallel.pipeline",

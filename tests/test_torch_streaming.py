@@ -174,6 +174,20 @@ def test_assemble_false_matches_jax():
         np.testing.assert_array_equal(wd[b, cap - n:], ref_words[b, :n])
 
 
+def test_hdr_and_device_are_keyword_only():
+    """The JAX signature's fourth parameter is ``seg_cap``; the port has
+    none, so a positional call written for it fails with TypeError
+    instead of reading ``None`` as the header transport."""
+    with pytest.raises(TypeError):
+        streaming.StreamEncoder(1, 2, True, None)
+    with pytest.raises(TypeError):
+        streaming.StreamEncoder(1, 2, True, "u16", CPU)
+    enc = streaming.StreamEncoder(1, 2, True, hdr="u16", device=CPU)
+    batch = _mk_batch(4, 256, 6, 7)
+    enc.submit(batch)
+    _check([batch], list(enc.finish()), 1)
+
+
 def test_default_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
