@@ -1,0 +1,10 @@
+"""enc_MBps: a writer's throughput, the uncompressed bytes of every call
+of the window over the time from the first call's start to the last
+call's end, in 10**6 bytes a second."""
+
+
+def read(rec):
+    if rec.direction != "write" or not rec.calls:
+        return None
+    t0, t1 = rec.window()
+    return sum(c.raw_bytes for c in rec.calls) / (t1 - t0) / 1e6

@@ -1,0 +1,7 @@
+"""device_idle_pct.dec: the share of the window (first call's start to
+last call's end) in which no kernel, copy or memset ran on the device,
+in a read cell."""
+
+
+def read(rec):
+    return rec.idle_pct("read")
