@@ -36,7 +36,12 @@ What it does, in order (any failure exits non-zero):
    byte 255
    (max-symbol byte 0) and blocks whose range-coder payload is 5 bytes
    (they decode to zeros, as in the reference) go through the arith
-   batch entries;
+   batch entries; the order-1 table build's counting kernels
+   (tables_o1_presence, tables_o1_count) over every alphabet bucket 4 to
+   96, block lengths 32 to 2^23 - 1 (unequal quarters), B from 1 to 4096,
+   rows at every alignment, runs and uniform bytes, one-symbol blocks and
+   blocks of byte 0 only, and later at the order-9 stripe lanes' and
+   tok3's descriptor groups' shapes;
 3. ``fuzz_paths``: corrupt streams through every decoder entry on the
    card (``engine="device"``, ``device="cuda"``): seeded batches of 64
    and 130 blocks from the port's own encoders (rANS 4x16 orders 0, 1,
@@ -67,7 +72,8 @@ What it does, in order (any failure exits non-zero):
    of order-1 blocks in the shift band and of host rebuilds is
    printed); the synth4 batches four more times, through the device-
    and the host-table route in turns (``TABLES_DEVICE_MIN`` above B for
-   the host route), each launching the one encoder and nothing else,
+   the host route), each launching the one encoder (the order-1 device
+   route also the two counting kernels, once each) and nothing else,
    whose streams must equal the main path's; the
    ``rans_pallas`` path (``tables_v2.build_o*_device``,
    one ``enc_o*_batch`` / ``dec_o*_batch`` call per shift group, equal
@@ -126,7 +132,9 @@ What it does, in order (any failure exits non-zero):
    one, the 4x16 encoder and decoder at the stripe lanes of order 9 and
    at the three descriptor groups with the most bytes of one Illumina
    name block (the ``kernels`` line's ``transform_shapes`` and
-   ``tok3_shapes``); times the device table build, arith_dec at each arith main-path
+   ``tok3_shapes``), and the two counting kernels at the write cell's
+   shape (256 x 1 510 000 quality bytes) and the main path's; times the
+   device table build, arith_dec at each arith main-path
    shape (with
    its default pool and the blocks whose contexts overflow it),
    arith_enc at 1 to 32 blocks per warp at each arith main-path shape,
@@ -643,6 +651,176 @@ def phase_kernels(quick: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the order-1 table build's counting kernels
+
+# the kernels the order-1 device-table route launches before the encoder
+TABLES_O1 = ("tables_o1_presence", "tables_o1_count")
+A_BUCKETS = (4, 8, 16, 24, 32, 48, 64, 72, 80, 96)    # rans_v2._round_a
+COUNT_BS = (1, 63, 64, 256, 4096)
+COUNT_NS = (32, 33, 37, 1237, 65536, 1510000, (1 << 23) - 1)
+COUNT_MAX_BYTES = 1 << 29
+
+
+def on_card(blocks, offset=0):
+    """(B, N) uint8 numpy array or tensor -> a contiguous copy on the
+    card whose data starts ``offset`` bytes past an allocation's start."""
+    t = torch.as_tensor(blocks)
+    B, N = t.shape
+    buf = torch.empty(B * N + offset, dtype=torch.uint8, device=DEV)
+    bt = buf[offset:].view(B, N)
+    bt.copy_(t)
+    return bt
+
+
+def count_batch(B, N, d, kind, gen, offset=0):
+    """(B, N) uint8 on the card, made there: block b draws from its own
+    n_b <= d distinct bytes (block 0 from all d, each present), in
+    geometric runs (p = 0.25, cut at 60) of nonzero bytes skewed to the
+    first (byte 0 absent: the build forces it) or uniform over bytes
+    that include 0.  The data starts ``offset`` bytes past an
+    allocation's start."""
+    K = d - 1 if kind == "runs" else d
+    perm = torch.rand(B, 255, generator=gen, device=DEV).argsort(dim=1) + 1
+    syms = perm[:, :K]
+    if kind != "runs":
+        syms = torch.cat([torch.zeros_like(syms[:, :1]), syms[:, :K - 1]], 1)
+    nb = torch.randint(1, K + 1, (B, 1), generator=gen, device=DEV)
+    nb[0] = K
+    if kind == "runs":
+        M = B * N // 3 + 64
+        lens = (torch.log(torch.rand(M, generator=gen, device=DEV))
+                / math.log(0.75)).floor().clamp(0, 59).long() + 1
+        v = (torch.rand(M, generator=gen, device=DEV) ** 3 * 65536).long()
+        v = v.repeat_interleave(lens)
+        while v.numel() < B * N:
+            v = torch.cat([v, v])
+        v = v[:B * N].view(B, N)
+    else:
+        v = torch.randint(0, 65536, (B, N), generator=gen, device=DEV)
+    blk = syms.gather(1, (v * nb) >> 16).to(torch.uint8)
+    del v
+    n0 = min(K, N)
+    blk[0, :n0] = syms[0, :n0].to(torch.uint8)
+    return on_card(blk, offset)
+
+
+def check_count(bt, label, want_a=None):
+    """tables_o1_presence and tables_o1_count on one batch on the card
+    against their plain versions (tolerance 0); returns the batch's
+    alphabet bucket A."""
+    pres_k = tables_v2.tables_o1_presence(bt)
+    pres_p = tables_v2._presence(bt)
+    torch.cuda.synchronize()
+    if not torch.equal(pres_k, pres_p):
+        fail(f"tables_o1_presence != plain at {label}")
+    A = rans_v2._round_a(int(pres_p.sum(dim=1).max()))
+    if want_a is not None and A != want_a:
+        fail(f"count grid {label}: the batch's alphabet bucket is {A}, "
+             f"not {want_a}")
+    alpha = tables_v2._alphabet(pres_p, A).to(torch.uint8)
+    H_k = tables_v2.tables_o1_count(bt, alpha)
+    H_p = tables_v2._tables_o1_count_plain(bt, alpha)
+    torch.cuda.synchronize()
+    err = max_abs_diff(H_k, H_p)
+    if err:
+        fail(f"tables_o1_count != plain at {label} A={A} (max abs err {err})")
+    return A
+
+
+def phase_tables_count(quick: bool) -> int:
+    """The counting kernels against their plain versions over every
+    alphabet bucket, block lengths from 32 to 2^23 - 1 (unequal quarters
+    at N & 3 != 0), B from 1 to 4096 (up to COUNT_MAX_BYTES a batch),
+    rows that start at every alignment, runs and uniform bytes, and per
+    shape a batch of a one-symbol block and a block of byte 0 only."""
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    Bs, Ns, cap = COUNT_BS, COUNT_NS, COUNT_MAX_BYTES
+    if quick:
+        Bs, Ns, cap = (1, 63, 256), (33, 1237, 65536, 1510000), 1 << 27
+    n = 0
+    for N in Ns:
+        for B in Bs:
+            if B * N > cap:
+                continue
+            for i, bucket in enumerate(A_BUCKETS):
+                d = min(bucket, N)
+                if d <= (A_BUCKETS[i - 1] if i else 0):
+                    continue
+                kind = "runs" if (i + n) % 2 else "uniform"
+                bt = count_batch(B, N, d, kind, gen, offset=n % 16)
+                check_count(bt, f"B={B} N={N} d={d} {kind} offset={n % 16}",
+                            want_a=bucket)
+                n += 1
+                del bt
+            special = np.full((B, N), 37, np.uint8)
+            special[0] = 77                       # one symbol
+            if B > 1:
+                special[1] = 0                    # byte 0 only
+            else:
+                check_count(on_card(np.zeros((1, N), np.uint8), 3),
+                            f"B=1 N={N} byte 0 only")
+                n += 1
+            check_count(on_card(special, 5), f"B={B} N={N} one-symbol rows")
+            n += 1
+    return n
+
+
+def qs_runs_on_card(B, N, seed):
+    """A quality-series batch as the benchmark's write cell has it, made
+    on the card: RTA3 bins 2/12/23/37 at 0.05/0.10/0.15/0.70 in geometric
+    runs (p = 0.25, cut at 60) that fill each block."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    M = B * N // 3 + 64
+    lens = (torch.log(torch.rand(M, generator=gen, device=DEV))
+            / math.log(0.75)).floor().clamp(0, 59).long() + 1
+    p = torch.tensor([0.05, 0.10, 0.15, 0.70], device=DEV)
+    vals = torch.multinomial(p, M, replacement=True, generator=gen)
+    bins = torch.tensor([2, 12, 23, 37], dtype=torch.uint8, device=DEV)
+    seq = bins[vals].repeat_interleave(lens)
+    while seq.numel() < B * N:
+        seq = torch.cat([seq, seq])
+    return seq[:B * N].reshape(B, N).contiguous()
+
+
+def count_entries(q4, launches):
+    """The counting kernels at the write cell's shape (256 x 1 510 000
+    quality bytes, A = 8), with the main path's batch ``q4`` second:
+    held against their plain versions once more and timed beside their
+    byte bounds."""
+    res = {}
+    for tag, bt in (("cell", qs_runs_on_card(256, 1510000, 16)),
+                    ("main", torch.from_numpy(q4).to(DEV))):
+        B, N = bt.shape
+        pres = tables_v2.tables_o1_presence(bt)
+        plain = {}
+        pl_p = once(lambda: plain.update(pres=tables_v2._presence(bt)))
+        ms_p = cuda_ms(lambda: tables_v2.tables_o1_presence(bt))
+        err_p = max_abs_diff(pres, plain.pop("pres"))
+        A = rans_v2._round_a(int(pres.sum(dim=1).max()))
+        alpha = tables_v2._alphabet(pres, A).to(torch.uint8)
+        H = tables_v2.tables_o1_count(bt, alpha)
+        pl_c = once(lambda: plain.update(H=tables_v2._tables_o1_count_plain(
+            bt, alpha)))
+        ms_c = cuda_ms(lambda: tables_v2.tables_o1_count(bt, alpha))
+        err_c = max_abs_diff(H, plain.pop("H"))
+        shape = f"B={B} N={N} A={A}"
+        res[tag] = [
+            entry("tables_o1_presence", "tables_o1_count.cu",
+                  "none: a torch scatter in ops/tables_v2.py", shape,
+                  launches, ms_p, pl_p, err_p, B * N + B * 256, 2 * B * N,
+                  None),
+            entry("tables_o1_count", "tables_o1_count.cu",
+                  "none: torch.bincount in ops/tables_v2.py", shape,
+                  launches, ms_c, pl_c, err_c, B * N + B * A + 4 * B * A * A,
+                  6 * B * N, None)]
+        del bt, pres, alpha, H
+    for e, m in zip(res["cell"], res["main"]):
+        e["second_ms"], e["second_shape"] = m["ms"], m["shape"]
+        e["max_abs_err"] = max(e["max_abs_err"], m["max_abs_err"])
+    return res["cell"]
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 
 class Codec(NamedTuple):
@@ -713,10 +891,13 @@ def run_main_path(codec, name, blocks, order, sample):
     for b in np.linspace(0, B - 1, min(sample, B)).astype(int):
         if streams[b] != codec.host_compress(blocks[b], order):
             fail(f"{name}: stream {b} differs from the host coder's")
+    # the 4x16 order-1 device-table route counts its bigrams on the card
+    need = codec.kernels + (TABLES_O1 if codec is R4X16 and order == 1
+                            and routes["device"] else ())
     for k, v in launches.items():
-        if k in codec.kernels and v < 1:
+        if k in need and v < 1:
             fail(f"{name}: kernel {k} was not launched on the main path")
-        if k not in codec.kernels and v:
+        if k not in need and v:
             fail(f"{name}: kernel {k} is not of this path but was launched")
         if codec is ARITH and k in codec.kernels and v != 1:
             fail(f"{name}: kernel {k} launched {v} times for one batch")
@@ -769,7 +950,8 @@ def run_table_routes(blocks, order, streams_want, name, engine="auto",
     """compress_blocks on a batch through both table routes in turns
     (device, host, host, device; TABLES_DEVICE_MIN set to B for the
     device route and above B for the host route), warm: each run must
-    take its route, launch the one 4x16 encoder and no other kernel,
+    take its route, launch the one 4x16 encoder (and on the order-1
+    device route the two counting kernels) once and no other kernel,
     and give ``streams_want`` (the first run's streams when None), block
     for block.  Returns the compress walls by route."""
     B, N = blocks.shape
@@ -787,7 +969,9 @@ def run_table_routes(blocks, order, streams_want, name, engine="auto",
         batch.TABLES_DEVICE_MIN = keep
         routes = dict(batch.TABLE_ROUTES)
         expect_only(f"{name} {route}-table route", rans_vmem.LAUNCHES,
-                    "rans16_enc_packed")
+                    ("rans16_enc_packed",)
+                    + (TABLES_O1 if route == "device" and order == 1
+                       else ()))
         other = "host" if route == "device" else "device"
         if routes[route] < 1 or routes[other]:
             fail(f"{name}: expected the {route}-table route, got {routes}")
@@ -853,7 +1037,7 @@ def run_transform_path(blocks, order, sample):
     for k, v in res["launches"].items():
         if k in TRANSFORM_ORDERS[order] and v < 1:
             fail(f"{name}: kernel {k} was not launched on the path")
-        if k not in R4X16.kernels and v:
+        if k not in R4X16.kernels + TABLES_O1 and v:
             fail(f"{name}: kernel {k} is not of this path but was launched")
     log(f"main path {name}: {B} blocks round-trip, {min(sample, B)} sampled "
         "streams byte-identical to the host coder")
@@ -959,7 +1143,8 @@ def run_tok3_paths(blocks):
                     tok3.encode_names, level=9, use_arith=use_arith,
                     engine=engine), blks)
                 if engine == "device":
-                    only_kernels(name, launches, TOK3_PAIR[:1], TOK3_PAIR[:1])
+                    only_kernels(name, launches, TOK3_PAIR[:1] + TABLES_O1,
+                                 TOK3_PAIR[:1])
                 else:
                     only_kernels(name, launches, ())
                 if first is None:
@@ -1082,15 +1267,20 @@ def table_route_sweep(blocks):
 
 
 def table_build_ms(blocks):
-    """Device time of the table build on the main path's batch, the
-    batch already on the card (CUDA events; order 1 without, order 0
-    with its small copies to the host)."""
+    """Device time of the table build on the main path's batch, and at
+    order 1 on a batch of the write cell's shape, the batch already on
+    the card (CUDA events; order 1 without, order 0 with its small copies
+    to the host)."""
     bt = torch.from_numpy(blocks).to(DEV)
+    cell = qs_runs_on_card(256, 1510000, 17)
     return {"order1": cuda_ms(lambda: tables_v2.build_o1_device_async(
                 bt, device=DEV), reps=3),
             "order0": cuda_ms(lambda: tables_v2.build_o0_device(
                 bt, device=DEV), reps=3),
-            "shape": f"B={blocks.shape[0]} N={blocks.shape[1]}"}
+            "shape": f"B={blocks.shape[0]} N={blocks.shape[1]}",
+            "order1_cell": cuda_ms(lambda: tables_v2.build_o1_device_async(
+                cell, device=DEV), reps=3),
+            "cell_shape": "B=256 N=1510000 (the write cell's quality runs)"}
 
 
 def band_counts(blocks):
@@ -1103,12 +1293,12 @@ def band_counts(blocks):
     return int(meta[:, 2].sum()), int(flips.sum())
 
 
-def expect_only(name, launches, kernel):
-    """Exactly one launch of ``kernel`` and none of any other."""
+def expect_only(name, launches, kernels):
+    """Exactly one launch of each of ``kernels`` and none of any other."""
     for k, v in launches.items():
-        if v != (1 if k == kernel else 0):
-            fail(f"{name}: kernel {k} launched {v} times (expected only "
-                 f"one {kernel})")
+        if v != (1 if k in kernels else 0):
+            fail(f"{name}: kernel {k} launched {v} times (expected one "
+                 f"of each of {kernels} only)")
 
 
 def run_pallas_path(blocks, order):
@@ -1151,7 +1341,7 @@ def run_pallas_path(blocks, order):
         torch.cuda.synchronize()
         t_enc += time.perf_counter() - t
         expect_only(f"{name} encode shift={sv}", rans_vmem.LAUNCHES,
-                    "rans16_enc_packed")
+                    ("rans16_enc_packed",))
         st2, wd2, cn2 = enc_v2(sub, al.cpu().numpy(), pk.cpu().numpy(),
                                int(sv))
         live = np.arange(wd.shape[1])[None, :] < cn[:, None]
@@ -1167,7 +1357,7 @@ def run_pallas_path(blocks, order):
         torch.cuda.synchronize()
         t_dec += time.perf_counter() - t
         expect_only(f"{name} decode shift={sv}", rans_vmem.LAUNCHES,
-                    "rans16_dec_packed")
+                    ("rans16_dec_packed",))
         if not np.array_equal(out, sub):
             fail(f"{name}: a block of shift {sv} did not round-trip")
         total["rans16_enc_packed"] += 1
@@ -1983,8 +2173,9 @@ def streams_from_tuple(res, blocks):
 
 def stream_case(name, batches, want, order, depth, hdr="auto", staged=None):
     """Drive one stream configuration; every stream must equal
-    ``want`` (the batch entry's), the one 4x16 encoder must launch once
-    per batch and no other kernel.  Returns its report row."""
+    ``want`` (the batch entry's), the one 4x16 encoder (at order 1 with
+    the two counting kernels) must launch once per batch and no other
+    kernel.  Returns its report row."""
     B = sum(len(b) for b in batches)
     N = batches[0].shape[1]
     outs, wall, launches, hdr_bytes = run_stream(
@@ -1997,8 +2188,9 @@ def stream_case(name, batches, want, order, depth, hdr="auto", staged=None):
         bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
                    len(got))
         fail(f"stream {name}: stream {bad} differs from compress_blocks'")
+    per_batch = ("rans16_enc_packed",) + (TABLES_O1 if order == 1 else ())
     for k, v in launches.items():
-        if v != (len(batches) if k == "rans16_enc_packed" else 0):
+        if v != (len(batches) if k in per_batch else 0):
             fail(f"stream {name}: kernel {k} launched {v} times for "
                  f"{len(batches)} batches")
     row = {"B": B, "N": N, "batch": len(batches[0]), "order": order,
@@ -2671,6 +2863,10 @@ def main() -> None:
     ncases = phase_kernels_rc(args.quick)
     log(f"range-coder kernels == plain versions (tolerance 0) on {ncases} "
         f"cases in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ncases = phase_tables_count(args.quick)
+    log(f"order-1 counting kernels == plain versions (tolerance 0) on "
+        f"{ncases} cases in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"kernels_vs_plain": [
         {"name": k, "launches": v, "ok": True}
         for k, v in rans_vmem.LAUNCHES.items()]}), flush=True)
@@ -2694,7 +2890,8 @@ def main() -> None:
     _l, streams0 = run_main_path(R4X16, "synth4 order 0", q4, 0, 256)
     _l, streams_w = run_main_path(R4X16, "wide41 order 1", wide, 1, 256)
     # both table routes of the synth4 batches, each launching the one
-    # encoder alone, give the main path's streams
+    # encoder (and the order-1 device route the counting kernels) alone,
+    # give the main path's streams
     routes_s = {f"order{o}": run_table_routes(q4, o, st, f"synth4 order {o}")
                 for o, st in ((1, streams1), (0, streams0))}
     routes_s["shape"] = f"B={B} N={N}"
@@ -2719,6 +2916,11 @@ def main() -> None:
     # through the same batched groups
     transform = {o: run_transform_path(q4, o, 64) for o in TRANSFORM_ORDERS}
     transform_entries = transform_kernel_checks(q4, transform[9]["launches"])
+    lanes = stripe_lanes(q4)
+    A9 = check_count(on_card(lanes), "order-9 stripe lanes")
+    log(f"order-1 counting kernels == plain versions at the order-9 stripe "
+        f"lanes, B={lanes.shape[0]} N={lanes.shape[1]} A={A9}")
+    del lanes
 
     # rANS 4x8: its host coder is pure Python, so the sample is 16
     launches["rans4x8"], _ = run_main_path(R4X8, "synth4 order 1", q4, 1, 16)
@@ -2751,6 +2953,13 @@ def main() -> None:
         tok3_paths["illumina level 9 encode device"]["launches"][
             "rans16_enc_packed"])
     tok3_paths["descriptor_decode_engine_device"] = tok3_dec
+    groups3 = descriptor_groups(names["illumina"][0])[0]
+    for arr, _o in groups3:
+        check_count(on_card(arr), f"tok3 descriptor group {arr.shape}")
+    log(f"order-1 counting kernels == plain versions at the {len(groups3)} "
+        f"descriptor groups of one Illumina block: "
+        f"{[g.shape for g, _o in groups3]}")
+    del groups3
     del tok3_streams
     log(f"tok3 phase: {time.perf_counter() - t:.1f} s")
 
@@ -2772,6 +2981,7 @@ def main() -> None:
     entries += kernel_times_packed(q4, groups, launches["packed"], entries)
     del groups
     build_ms = table_build_ms(q4)
+    entries += count_entries(q4, launches["rans4x16"])
     entries += kernel_times8(q4, 1, launches)
     entries += kernel_times_arith(q4, 1, launches["arith"])
     shapes = [("synth4 order 1", q4, 1), ("synth4 order 0", q4, 0),

@@ -110,6 +110,10 @@ def _declare(lib) -> None:
     lib.arith_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
     lib.rc_enc_launch.restype = _int
     lib.rc_enc_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
+    lib.tables_o1_presence_launch.restype = _int
+    lib.tables_o1_presence_launch.argtypes = [_vp] * 2 + [_int] * 2 + [_vp]
+    lib.tables_o1_count_launch.restype = _int
+    lib.tables_o1_count_launch.argtypes = [_vp] * 3 + [_int] * 3 + [_vp]
 
 
 def get_lib():

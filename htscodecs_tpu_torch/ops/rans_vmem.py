@@ -54,12 +54,14 @@ RANS_L = 1 << 15
 _M32 = 0xFFFFFFFF
 
 # launches per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py and the
-# range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py count in
+# kernel and nowhere else (the 4x8 engine in ops/rans8_vmem.py, the
+# range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py and the
+# order-1 table build's counting kernels in ops/tables_v2.py count in
 # the same table)
 LAUNCHES = {"rans16_dec": 0, "rans16_dec_packed": 0,
             "rans16_enc_packed": 0, "rans8_enc": 0, "rans8_dec": 0,
-            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0}
+            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0,
+            "tables_o1_presence": 0, "tables_o1_count": 0}
 
 
 def reset_launches() -> None:

@@ -1,19 +1,26 @@
 """On-device rANS 4x16 frequency-table construction (orders 0 and 1).
 
 Counterpart of ``htscodecs_tpu/ops/tables_v2.py``.  That module builds
-the per-block normalised tables in XLA; here the same steps are plain
-PyTorch operations on the tensor's device (no hand-written kernel: none
-of them is a Pallas kernel in the JAX package).  What differs, because
-the card's idiom differs from the TPU's:
+the per-block normalised tables in XLA; here the same steps are PyTorch
+operations on the tensor's device, but for the order-1 build's counting
+stage, which has two kernels of its own (none of this is a Pallas
+kernel in the JAX package).  What differs, because the card's idiom
+differs from the TPU's:
 
-- **histograms** are counted with ``torch.bincount`` on a flat int32
-  index (order 1: ``b*A*A + ctx*A + sym`` per tile of at most ``TILE``
-  blocks, below 2^31 at A = 96, and fewer where a tile's (blocks, N)
-  int32 tensors would pass ``_TILE_BYTES``; order 0: ``b*256 +
-  byte``), not with a one-hot matrix product.  Counts are integers, so the order in which
-  the card's atomics land does not matter;
-- **presence** is a scatter of ones (byte 0 is always present: the
-  reference forces it, ``rANS_static4x16pr.c:731``);
+- **order-1 presence and bigram histogram** come from
+  ``tables_o1_presence`` and ``tables_o1_count``
+  (``csrc/tables_o1_count.cu``: the raw bytes read once per kernel,
+  counts in shared memory, one pass over the whole batch).  Their plain
+  versions, taken for CPU tensors, are a scatter of ones
+  (``_presence``) and ``torch.bincount`` on a flat int32 index
+  ``b*A*A + ctx*A + sym`` per tile of at most ``TILE`` blocks (below
+  2^31 at A = 96), and fewer where a tile's (blocks, N) int32 tensors
+  would pass ``_TILE_BYTES``;
+- **order-0 histograms** are ``torch.bincount`` on ``b*256 + byte``.
+  Neither route uses a one-hot matrix product; counts are integers, so
+  the order in which the card's atomics land does not matter;
+- **presence** holds byte 0 in every block: the reference forces it
+  (``rANS_static4x16pr.c:731``);
 - **normalisation** replays ``normalise_freq``
   (``rANS_static4x16pr.c:116-161``) directly in int64 lanes:
   ``tr = (tot<<31)//size + (1<<30)//size``, ``F*tr >> 31``, the retry
@@ -54,13 +61,16 @@ import struct
 import numpy as np
 import torch
 
+from .. import cuda_build
 from . import convert, rans_v2
+from .rans_vmem import LAUNCHES, _require, _stream
 
 TOT0 = 4096
 PACK_SHIFT = 13
 MAX_DENSE_A = 96
-# most blocks per histogram pass (keeps the order-1 flat index
-# b*A*A + ctx*A + sym below 2^31 at A = 96)
+# most blocks per pass of the (B, A, A) stage and of the plain
+# histograms (keeps the order-1 flat index b*A*A + ctx*A + sym below
+# 2^31 at A = 96)
 TILE = 2048
 # bytes of each (tile, N) int32 tensor of a pass (the dense indices and
 # the histogram index): large blocks get fewer blocks per pass
@@ -223,40 +233,91 @@ def _presence(jb: torch.Tensor) -> torch.Tensor:
     return pres
 
 
-def _build_o1_tile(blocks: torch.Tensor, pres: torch.Tensor, A: int, N: int):
-    """Order-1 table build of one tile of blocks.
+def tables_o1_presence(blocks: torch.Tensor) -> torch.Tensor:
+    """Per-block byte presence of (B, N) uint8 blocks: (B, 256) bool,
+    byte 0 always present.  csrc/tables_o1_count.cu on a CUDA tensor,
+    ``_presence`` on the CPU."""
+    B, N = blocks.shape
+    dev = blocks.device
+    _require(blocks, "blocks", torch.uint8, (B, N), dev)
+    if dev.type == "cpu":
+        return _presence(blocks)
+    pres = torch.zeros((B, 256), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_build.get_lib().tables_o1_presence_launch(
+            blocks.data_ptr(), pres.data_ptr(), B, N, _stream(blocks))
+    cuda_build.check(err, "tables_o1_presence")
+    LAUNCHES["tables_o1_presence"] += 1
+    return pres
 
-    blocks (B, N) uint8, pres (B, 256) bool.  Returns
-      alpha  (B, A) uint8  sorted alphabet, last-symbol padded
+
+def tables_o1_count(blocks: torch.Tensor, alpha: torch.Tensor):
+    """The order-1 bigram histogram of (B, N) uint8 blocks over their
+    (B, A) uint8 sorted alphabets: (B, A, A) int32, H[b, ctx, sym] the
+    count of sym after ctx (dense indices, ``rans_v2._densify``'s rule),
+    the first byte in context 0, and one more count in context 0 for the
+    symbols at N//4, N//2 and 3*(N//4) (rANS_static4x16pr.c:736-739).
+    csrc/tables_o1_count.cu on a CUDA tensor, ``_tables_o1_count_plain``
+    on the CPU."""
+    B, N = blocks.shape
+    A = alpha.shape[1]
+    dev = blocks.device
+    _require(blocks, "blocks", torch.uint8, (B, N), dev)
+    _require(alpha, "alpha", torch.uint8, (B, A), dev)
+    if N < 1 or not 1 <= A <= MAX_DENSE_A:
+        raise ValueError("tables_o1_count: bad geometry")
+    if dev.type == "cpu":
+        return _tables_o1_count_plain(blocks, alpha)
+    H = torch.zeros((B, A, A), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_build.get_lib().tables_o1_count_launch(
+            blocks.data_ptr(), alpha.data_ptr(), H.data_ptr(), B, N, A,
+            _stream(blocks))
+    cuda_build.check(err, "tables_o1_count")
+    LAUNCHES["tables_o1_count"] += 1
+    return H
+
+
+def _tables_o1_count_plain(blocks: torch.Tensor, alpha: torch.Tensor):
+    """Plain PyTorch version of tables_o1_count: per tile of blocks, the
+    dense remap, the flat int32 index b*A*A + ctx*A + sym, one
+    ``torch.bincount`` and the three quarter-start fixups."""
+    B, N = blocks.shape
+    A = alpha.shape[1]
+    dev = blocks.device
+    H = torch.empty((B, A, A), dtype=torch.int32, device=dev)
+    rows = _tile_rows(TILE, N)
+    q = N >> 2
+    for r0 in range(0, B, rows):
+        jb = blocks[r0:r0 + rows]
+        b = jb.shape[0]
+        dense = rans_v2._densify(jb, alpha[r0:r0 + rows])         # (b,N) i32
+        idx = dense.clone()
+        idx[:, 1:] += dense[:, :-1] * A
+        idx += (torch.arange(b, device=dev, dtype=torch.int32) * (A * A))[:, None]
+        Ht = torch.bincount(idx.view(-1), minlength=b * A * A).view(b, A, A)
+        del idx
+        bio = torch.arange(b, device=dev)
+        zero = torch.zeros_like(bio)
+        one = torch.ones((b,), dtype=Ht.dtype, device=dev)
+        for pos in (q, 2 * q, 3 * q):
+            Ht.index_put_((bio, zero, dense[:, pos].to(torch.int64)), one,
+                          accumulate=True)
+        H[r0:r0 + rows] = Ht
+    return H
+
+
+def _tables_o1_tile(H: torch.Tensor, asz: torch.Tensor):
+    """The order-1 tables of one tile of blocks from their bigram
+    histograms H (B, A, A) int32 and alphabet sizes asz (B,).  Returns
       packed (B, A, A) int32  (base<<13|freq) post-shift tables
       fhdr   (B, A, A) int16  pre-shift normalised freqs (header payload)
       meta   (B, 3) int32  [asz, shift, flag]; flag -> replay on host
-      H      (B, A, A) int32  the bigram histogram
     """
-    B = blocks.shape[0]
-    dev = blocks.device
+    B, A = H.shape[0], H.shape[1]
+    dev = H.device
     i64 = torch.int64
-
-    # ---- alphabet ----
-    asz = pres.sum(dim=1)
-    alpha = _alphabet(pres, A)
-
-    # ---- dense remap + bigram histogram ----
-    dense = rans_v2._densify(blocks, alpha.to(torch.uint8))       # (B,N) i32
-    idx = dense.clone()
-    idx[:, 1:] += dense[:, :-1] * A
-    idx += (torch.arange(B, device=dev, dtype=torch.int32) * (A * A))[:, None]
-    H = torch.bincount(idx.view(-1), minlength=B * A * A).view(B, A, A)
-    del idx
-    # quarter-start fixups charged to context 0
-    # (rANS_static4x16pr.c:736-739)
-    q = N >> 2
-    bio = torch.arange(B, device=dev)
-    zero = torch.zeros_like(bio)
-    one = torch.ones((B,), dtype=H.dtype, device=dev)
-    for pos in (q, 2 * q, 3 * q):
-        H.index_put_((bio, zero, dense[:, pos].to(i64)), one, accumulate=True)
-    del dense
+    H = H.to(i64)
     T = H.sum(dim=2)                                              # (B,A)
 
     # ---- shift heuristic (compute_shift) ----
@@ -308,8 +369,7 @@ def _build_o1_tile(blocks: torch.Tensor, pres: torch.Tensor, A: int, N: int):
     packed = torch.where(pad, torch.zeros_like(packed), packed)
 
     meta = torch.stack([asz, shift, flag.to(i64)], dim=1).to(torch.int32)
-    return (alpha.to(torch.uint8), packed.to(torch.int32),
-            Fn.to(torch.int16), meta, H.to(torch.int32))
+    return packed.to(torch.int32), Fn.to(torch.int16), meta
 
 
 # ---------------------------------------------------------------------------
@@ -423,23 +483,28 @@ def build_o1_device_async(blocks, tile: int = TILE, device="cuda"):
     when the batch needs the host path: an alphabet wider than 96, a
     block under 4 bytes, or N >= 2^23 (the JAX package's limit, kept so
     both packages take the same route).  Only the alphabet size comes
-    back to the host here.  Callers launch dependent device work (the
-    encode) before they wait for fhdr and meta."""
+    back to the host here.  The bigrams are counted in one pass over
+    the batch; the tables are made from them ``tile`` blocks at a time.
+    Callers launch dependent device work (the encode) before they wait
+    for fhdr and meta."""
     B, N = blocks.shape
     if B == 0 or N >= (1 << 23) or N < 4:
         return None
     dev = rans_v2.check_device(device)
     jb = convert.as_tensor(blocks, torch.uint8, dev)
-    pres = _presence(jb)
-    amax = int(pres.sum(dim=1).max())
+    pres = tables_o1_presence(jb)
+    asz = pres.sum(dim=1)
+    amax = int(asz.max())
     if amax > MAX_DENSE_A:
         return None
     A = rans_v2._round_a(amax)
-    tile = _tile_rows(tile, N)
-    outs = [_build_o1_tile(jb[t0:t0 + tile], pres[t0:t0 + tile], A, N)
+    alpha = _alphabet(pres, A).to(torch.uint8)
+    H = tables_o1_count(jb, alpha)
+    outs = [_tables_o1_tile(H[t0:t0 + tile], asz[t0:t0 + tile])
             for t0 in range(0, B, tile)]
-    cat = outs[0] if len(outs) == 1 else [torch.cat(o) for o in zip(*outs)]
-    return cat[0], cat[1], cat[2], cat[3], cat[4], A
+    packed, fhdr, meta = (outs[0] if len(outs) == 1
+                          else [torch.cat(o) for o in zip(*outs)])
+    return alpha, packed, fhdr, meta, H, A
 
 
 def resolve_band_flags(meta: np.ndarray, H_d: torch.Tensor) -> np.ndarray:

@@ -204,11 +204,12 @@ def test_cuda_tensor_never_takes_the_plain_version():
     """The wrappers pick the plain version by the tensor's device only."""
     import inspect
     from htscodecs_tpu_torch.ops import (arith_vmem, rans8_vmem, rans_vmem,
-                                         rc_vmem)
+                                         rc_vmem, tables_v2)
     for fn in (rans_vmem.rans16_dec, rans_vmem.rans16_dec_packed,
                rans_vmem.rans16_enc_packed,
                rans8_vmem.rans8_enc, rans8_vmem.rans8_dec,
-               arith_vmem.arith_enc, arith_vmem.arith_dec, rc_vmem.rc_enc):
+               arith_vmem.arith_enc, arith_vmem.arith_dec, rc_vmem.rc_enc,
+               tables_v2.tables_o1_presence, tables_v2.tables_o1_count):
         src = inspect.getsource(fn)
         assert 'dev.type == "cpu"' in src
         assert "try:" not in src and "except" not in src

@@ -79,6 +79,77 @@ def _fuzz_blocks():
     return out
 
 
+def _run_boundary_blocks():
+    """(4, 4099) blocks whose quarter starts (q = 1024, 2q, 3q, the last
+    quarter one byte longer) fall on run boundaries: the symbol changes
+    right at each start, one byte before it, one byte after it, and in
+    the last block runs of byte 0 begin there."""
+    N, q = 4099, 1024
+    pos = np.arange(N)
+    out = np.empty((4, N), np.uint8)
+    syms = np.array([35, 45, 56, 70], np.uint8)
+    for b, shift in enumerate((0, -1, 1)):
+        out[b] = syms[((pos - shift) // q).clip(0, 3)]
+    out[3] = np.where(((pos // q) % 2) == 1, 0, 61)
+    return [("quarter_runs", out)]
+
+
+def _count_jax_h(blocks, name):
+    """The counting wrappers (device="cpu": the plain versions) against
+    the JAX package's alphabet and bigram histogram."""
+    r = ref.build_o1_device_async(blocks)
+    bt = torch.from_numpy(blocks)
+    pres = port.tables_o1_presence(bt)
+    want = np.zeros((len(blocks), 256), bool)
+    for b, blk in enumerate(blocks):
+        want[b, np.unique(blk)] = True
+    want[:, 0] = True
+    np.testing.assert_array_equal(pres.numpy(), want, name)
+    A = r[5]
+    assert port.rans_v2._round_a(int(pres.sum(dim=1).max())) == A, name
+    alpha = port._alphabet(pres, A).to(torch.uint8)
+    np.testing.assert_array_equal(alpha.numpy(), np.asarray(r[0]), name)
+    H = port.tables_o1_count(bt, alpha)
+    assert H.dtype == torch.int32 and H.shape == (len(blocks), A, A)
+    np.testing.assert_array_equal(H.numpy(), np.asarray(r[4]), name)
+    np.testing.assert_array_equal(
+        port._tables_o1_count_plain(bt, alpha).numpy(), H.numpy(), name)
+
+
+@pytest.mark.parametrize("name,blocks", _cases() + _fuzz_blocks()
+                         + [("band", _band_blocks())] + _run_boundary_blocks())
+def test_o1_count_matches_jax_histogram(name, blocks):
+    _count_jax_h(blocks, name)
+
+
+def test_o1_count_wrappers_count_no_launch_on_the_cpu():
+    """On a CPU tensor the counting wrappers take their plain versions,
+    which launch nothing, and the build returns their histogram."""
+    from htscodecs_tpu_torch.ops import rans_vmem
+    blocks = _cases()[0][1]
+    before = dict(rans_vmem.LAUNCHES)
+    r = port.build_o1_device_async(blocks, device="cpu")
+    assert rans_vmem.LAUNCHES == before
+    bt = torch.from_numpy(blocks)
+    H = port.tables_o1_count(bt, r[0])
+    assert rans_vmem.LAUNCHES == before
+    assert torch.equal(H, r[4])
+
+
+def test_o1_count_wrappers_refuse_bad_inputs():
+    bt = torch.from_numpy(_cases()[0][1])
+    alpha = port._alphabet(port.tables_o1_presence(bt), 8).to(torch.uint8)
+    with pytest.raises(ValueError, match="blocks"):
+        port.tables_o1_presence(bt.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        port.tables_o1_presence(bt[:, ::2])
+    with pytest.raises(ValueError, match="alpha"):
+        port.tables_o1_count(bt, alpha[:2])
+    wide = torch.zeros((bt.shape[0], 97), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="bad geometry"):
+        port.tables_o1_count(bt, wide)
+
+
 def _check_o1(blocks, name):
     """Port vs JAX on blocks neither flags; every block the port's
     exact replay keeps is held against the native builder."""
