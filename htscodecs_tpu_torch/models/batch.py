@@ -97,11 +97,15 @@ TABLES_DEVICE_MIN = 64
 # that a run can show which route a batch took
 TABLE_ROUTES = {"device": 0, "host": 0}
 
-# rANS 4x16 entropy jobs of transform-flagged encodes and of all decodes
-# by route ("device": a batched group, "host": the native coder one job
-# at a time), counted as TABLE_ROUTES counts groups
+# entropy jobs by route ("device": a batched group, "host": the host
+# coder one job at a time), counted as TABLE_ROUTES counts groups:
+# "encode" / "decode" the rANS 4x16 jobs of transform-flagged encodes and
+# of all decodes, "encode8" / "decode8" every block of the rANS 4x8
+# entries
 ENTROPY_JOBS = {"encode": {"device": 0, "host": 0},
-                "decode": {"device": 0, "host": 0}}
+                "decode": {"device": 0, "host": 0},
+                "encode8": {"device": 0, "host": 0},
+                "decode8": {"device": 0, "host": 0}}
 
 # Host table construction is native C via ctypes (GIL released), so a
 # thread pool scales it across cores.
@@ -911,6 +915,7 @@ def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
         if order in (0, 1) and engine != "host" and len(a) >= 8:
             groups[len(a)].append(i)
         else:
+            ENTROPY_JOBS["encode8"]["host"] += 1
             out[i] = rans4x8.compress(a, order)
     for n, idxs in groups.items():
         res = None
@@ -921,9 +926,11 @@ def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
         if res is None or any(r is None for r in res):
             # small group, no native library, or an alphabet wider than
             # the dense tables take (A > 96) somewhere in the group
+            ENTROPY_JOBS["encode8"]["host"] += len(idxs)
             for i in idxs:
                 out[i] = rans4x8.compress(arrs[i], order)
             continue
+        ENTROPY_JOBS["encode8"]["device"] += len(idxs)
         if order == 1:
             alpha, packed, _ = rans_v2.densify_builds(
                 (r[1], r[2]) for r in res)
@@ -1011,6 +1018,7 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
         # at 2 GiB or more a block
         if (len(s) < 9 or s[0] not in (0, 1) or engine == "host"
                 or osz >= 2**31 - 1):
+            ENTROPY_JOBS["decode8"]["host"] += 1
             out[i] = rans4x8.uncompress(s)
             continue
         groups[(s[0], osz)].append((i, s))
@@ -1019,9 +1027,11 @@ def r4x8_uncompress_blocks(streams, engine: str = "auto",
         if osz >= 4 and not _small_group(len(items), osz, engine):
             parsed = _r8_parse_group(items, order)
         if parsed is None:
+            ENTROPY_JOBS["decode8"]["host"] += len(items)
             for i, s in items:
                 out[i] = rans4x8.uncompress(s)
             continue
+        ENTROPY_JOBS["decode8"]["device"] += len(items)
         states, stream, nbs, alpha, packed = parsed
         res = dec_fn(order, osz, states, stream, alpha, packed) \
             if dec_fn is not None else None
