@@ -17,7 +17,13 @@ What it does, in order (any failure exits non-zero):
    buckets, both orders, 10/12/mixed table precision (4x16, holes and
    empty rows included) and truncated and garbage streams; the 4x16
    decoder's entries and rans8_dec at 32, 64 and 128 threads per CTA
-   and through their global-table routes, rans8_dec also on 4x8
+   and through their global-table routes, rans8_dec's default launch
+   too, each launch checked to take the route (bisection or direct) that
+   ``rans8_vmem.direct_route`` gives it; the direct route also at every
+   alphabet from 2 to the largest whose CTA fits (order 1: 14, order 0:
+   128), B from 1 to 264, every N & 3 tail, truncated counts and
+   arbitrary states, with its CTAs an SM held to the CUDA occupancy
+   calculator's; rans8_dec also on 4x8
    alphabets of 128 to 256 symbols (rans8_enc on those up to 255, its
    order-1 global-table route), rans8_enc also on bytes past the
    block's alphabet and on one-symbol rows of 4095 and 4096 slots; the
@@ -57,8 +63,10 @@ What it does, in order (any failure exits non-zero):
    members the host coder accepts, where the call raised), every launch
    of rans16_dec (both entries), rans8_dec and arith_dec must equal its
    plain version on the same inputs (tolerance 0) and its reruns with
-   random bytes around every input, and each of the three kernels must
-   have run on a batch with corrupt members.  A memcheck pass runs the
+   random bytes around every input (rans8_dec's also through its
+   bisection route, where the batch took the direct one), and each of
+   the three kernels, rans8_dec on both routes, must have run on a
+   batch with corrupt members.  A memcheck pass runs the
    phase at a quarter of its size under ``compute-sanitizer --tool
    memcheck`` (beside ``nvcc``) first: a missing sanitizer fails the
    run, a device it refuses is recorded (``fuzz_paths`` line;
@@ -132,8 +140,14 @@ What it does, in order (any failure exits non-zero):
    one, the 4x16 encoder and decoder at the stripe lanes of order 9 and
    at the three descriptor groups with the most bytes of one Illumina
    name block (the ``kernels`` line's ``transform_shapes`` and
-   ``tok3_shapes``), and the two counting kernels at the write cell's
-   shape (256 x 1 510 000 quality bytes) and the main path's; times the
+   ``tok3_shapes``), the two counting kernels at the write cell's
+   shape (256 x 1 510 000 quality bytes) and the main path's, and
+   rans8_dec at the read cell's shape (16 x 1 510 000 quality bytes,
+   A = 8: both routes equal to the blocks and to each other, the first
+   1000 steps of every chain to the plain version) with the direct
+   route's crossover sweeps (order 1 at A = 5, B = 16 to 4096, and at
+   A = 8; order 0 at A = 5; each route's ms a launch, the direct one
+   past its rule too); times the
    device table build, arith_dec at each arith main-path
    shape (with
    its default pool and the blocks whose contexts overflow it),
@@ -147,7 +161,8 @@ What it does, in order (any failure exits non-zero):
 
 ``--ab DIR`` runs none of that: it times arith_enc, arith_dec,
 rans8_enc (against the parent's kernel and its whole
-``rans8_vmem.enc_batch``), rans8_dec, rc_enc, the 4x16 encoder (against
+``rans8_vmem.enc_batch``), rans8_dec (also at the read cell's shape),
+rc_enc, the 4x16 encoder (against
 the parent's whole ``rans_vmem.enc_batch`` where it has one, and its
 rans16_enc_packed) and
 both 4x16 decoder entries of this checkout against those of the
@@ -305,9 +320,36 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
             fail(f"the 4x16 decoders did not return the input at {label}")
 
 
-# rans8_dec (threads, global_tables): the default, larger CTAs, and the
-# wide-table route (tables read from global memory) at the smallest CTA
-RANS8_SHAPES = ((0, False), (64, False), (128, False), (32, True))
+# rans8_dec (threads, global_tables): the default (the direct route where
+# direct_route admits the batch), the bisection route at its default CTA
+# and larger ones, and the wide-table route (tables read from global
+# memory) at the smallest CTA
+RANS8_SHAPES = ((0, False), (32, False), (64, False), (128, False),
+                (32, True))
+# the launch counters of rans8_dec's two routes
+DEC8 = ("rans8_dec", "rans8_dec_direct")
+
+
+def dec8_key(B, A, order, threads=0, glob=False) -> str:
+    """The counter a rans8_dec launch of these shapes adds to, on packable
+    rows (every table these phases build)."""
+    return DEC8[rans8_vmem.direct_route(
+        B, A, order, *rans8_vmem._device_limits(DEV), threads, glob)]
+
+
+def rans8_dec_routed(label, st, stream, cn, tables, N, order, **kw):
+    """rans8_dec with launch arguments ``kw``, and a check that it took
+    the route the rule gives these shapes."""
+    B, A = tables.alpha.shape
+    want = dec8_key(B, A, order, kw.get("threads", 0),
+                    kw.get("global_tables", False))
+    before = {k: rans_vmem.LAUNCHES[k] for k in DEC8}
+    out = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order, **kw)
+    got = [k for k in DEC8 if rans_vmem.LAUNCHES[k] != before[k]]
+    if got != [want]:
+        fail(f"rans8_dec at {label} {kw}: launched {got}, the rule gives "
+             f"{want}")
+    return out
 
 
 def same_streams_suffix(got, want) -> bool:
@@ -370,8 +412,9 @@ def check_case8(blocks, order, label, garbage=False, max_a=96) -> None:
     for tag, st, cn in variants:
         out_p = rans8_vmem._rans8_dec_plain(st, stream, cn, tables, N, order)
         for threads, glob in RANS8_SHAPES:
-            out_k = rans8_vmem.rans8_dec(st, stream, cn, tables, N, order,
-                                         threads=threads, global_tables=glob)
+            out_k = rans8_dec_routed(label + tag, st, stream, cn, tables, N,
+                                     order, threads=threads,
+                                     global_tables=glob)
             torch.cuda.synchronize()
             if not torch.equal(out_k, out_p):
                 fail(f"rans8_dec != plain at {label}{tag} threads={threads} "
@@ -412,6 +455,159 @@ def check_one_symbol_rows8() -> int:
                          f"order={order} did not round-trip")
                 n += 1
     return n
+
+
+def r8_tables_at(blocks, order, A):
+    """Dense 4x8 tables of a batch (native build, rows of 4095 slots)
+    padded to exactly A symbols: numpy (alpha (B,A), packed (B,A,A) or
+    (B,A))."""
+    res = [native.r8_build_tables_dense(b, order, 256) for b in blocks]
+    alpha = np.zeros((len(res), A), np.uint8)
+    packed = np.zeros((len(res), A, A) if order else (len(res), A), np.int32)
+    for k, (_t, al, pk) in enumerate(res):
+        a = len(al)
+        if a > A:
+            fail(f"r8_tables_at: a block has {a} symbols, over A = {A}")
+        alpha[k, :a], alpha[k, a:] = al, al[-1]
+        if order:
+            packed[k, :a, :a] = pk
+        else:
+            packed[k, :a] = pk
+    return alpha, packed
+
+
+def r8_case(blocks, order, A):
+    """The rans8_dec inputs of a batch at A symbols, written by
+    rans8_enc: (states, stream, counts, tables)."""
+    alpha, packed = r8_tables_at(blocks, order, A)
+    tables = convert.tables8_from_reference(alpha, packed, DEV)
+    bt = torch.as_tensor(blocks).to(DEV)
+    st, by, cn = rans8_vmem.rans8_enc(bt, tables.alpha, r8_packed(packed),
+                                      order)
+    return st, convert.words_forward(by, cn).contiguous(), cn, tables
+
+
+def direct_wave(A, order) -> int:
+    """The blocks one wave of direct-route CTAs holds at A symbols."""
+    sms, optin, per_sm = rans8_vmem._device_limits(DEV)
+    return sms * rans8_vmem.direct_ctas_per_sm(A, order, optin, per_sm)
+
+
+def check_direct_grid(quick: bool) -> int:
+    """rans8_dec's direct route against the plain version (tolerance 0)
+    at every alphabet from 2 to the largest whose CTA fits (order 1: 14;
+    order 0: the symbol field's 128), B from 1 to 264, every N & 3
+    tail, truncated counts and arbitrary states; each default launch
+    must take the direct route, and its CTAs an SM must be the CUDA
+    occupancy calculator's."""
+    lib = cuda_build.get_lib()
+    _sms, optin, per_sm = rans8_vmem._device_limits(DEV)
+    widths = {1: (2, 3, 5, 8, 14), 0: (2, 5, 40, 128)}
+    if quick:
+        widths = {1: (2, 5, 14), 0: (5, 128)}
+    n = 0
+    for order, As in widths.items():
+        for A in As:
+            per = rans8_vmem.direct_ctas_per_sm(A, order, optin, per_sm)
+            cuda = lib.rans8_dec_direct_ctas_per_sm(A, order)
+            if per != cuda:
+                fail(f"direct route at A={A} order={order}: the rule counts "
+                     f"{per} CTAs an SM, the occupancy calculator {cuda}")
+            Ns = (33, 514, 4099, 512)             # N & 3 = 1, 2, 3, 0
+            for k, B in enumerate((1, 5, 130, 264)):
+                N = Ns[(k + A) % 4]
+                blocks = testdata.synth_wide(B, N, max(A - 1, 1),
+                                             seed=B * 7 + A * 131 + N)
+                st, stream, cn, tables = r8_case(blocks, order, A)
+                bt = torch.from_numpy(blocks).to(DEV)
+                label = f"direct B={B} N={N} A={A} order={order}"
+                variants = [("", st, cn), (" truncated", st, cn // 2 + 1),
+                            (" garbage", garbage_states(B, N), cn)]
+                for tag, S, C in variants:
+                    out = rans8_dec_routed(label + tag, S, stream, C, tables,
+                                           N, order)
+                    torch.cuda.synchronize()
+                    want = rans8_vmem._rans8_dec_plain(S, stream, C, tables,
+                                                       N, order)
+                    if not torch.equal(out, want):
+                        fail(f"rans8_dec != plain at {label}{tag}")
+                    if not tag and not torch.equal(out, bt):
+                        fail(f"rans8_dec did not return the input at {label}")
+                    n += 1
+    return n
+
+
+def cell_inputs(A, order=1, seed=2147485003):
+    """16 quality-series blocks of 1 510 000 bytes (a CRAM 3.0 reader's
+    16 slices: the benchmark's qs30-read-k16 shape) and their rans8_dec
+    inputs at A symbols: (blocks on the card, states, stream, counts,
+    tables)."""
+    bt = qs_runs_on_card(16, 1510000, seed)
+    return (bt, *r8_case(bt.cpu().numpy(), order, A))
+
+
+def check_direct_cell():
+    """rans8_dec at the cell's shape (A = 8, the batch layer's bucket):
+    the direct route must decode the blocks, equal the bisection route,
+    and equal the plain version on the first 1000 steps of every chain
+    (the whole chain would take the plain version ~400 s); returns the
+    two routes' ms."""
+    bt, st, stream, cn, tables = cell_inputs(8)
+    N = bt.shape[1]
+    q = N >> 2
+    out = rans8_dec_routed("the cell", st, stream, cn, tables, N, 1)
+    bis = rans8_vmem.rans8_dec(st, stream, cn, tables, N, 1, threads=32)
+    if not (torch.equal(out, bt) and torch.equal(bis, bt)):
+        fail("rans8_dec at the cell's shape did not decode its blocks")
+    head = rans8_vmem._rans8_dec_plain(st, stream, cn, tables, 4000, 1)
+    for lane in range(4):
+        if not torch.equal(head[:, lane * 1000:(lane + 1) * 1000],
+                           out[:, lane * q:lane * q + 1000]):
+            fail(f"rans8_dec != plain on the first 1000 steps of state "
+                 f"{lane} at the cell's shape")
+    return {"shape": f"B=16 N={N} A=8 order=1",
+            "direct_ms": cuda_ms(lambda: rans8_vmem.rans8_dec(
+                st, stream, cn, tables, N, 1), reps=3),
+            "bisection_ms": cuda_ms(lambda: rans8_vmem.rans8_dec(
+                st, stream, cn, tables, N, 1, threads=32), reps=3),
+            "nbytes": int(cn.sum())}
+
+
+# B of the sweep at A = 5 and 8 (order 1) and of the one at order 0:
+# one wave, one past it, the rule's last B, one past that
+DIRECT_SWEEP_B = (16, 64, 128, 264, 265, 512, 528, 529, 4096)
+DIRECT_SWEEP_B8 = (16, 132, 133, 528, 529)
+DIRECT_SWEEP_B0 = (16, 1584, 1585, 3168)
+
+
+def direct_sweep(A=5, order=1, Bs=DIRECT_SWEEP_B):
+    """Where the direct route stops paying: N = 1 510 000 (the cell's 16
+    blocks repeated), ms a launch of each route (the direct route
+    launched past its rule too) and the rule's choice, at each B of
+    ``Bs``."""
+    bt, st, stream, cn, tables = cell_inputs(A, order)
+    N = bt.shape[1]
+    res = {"shape": f"A={A} N={N} order={order}",
+           "wave": direct_wave(A, order)}
+    for B in Bs:
+        ix = torch.arange(B, device=DEV) % 16
+        tb = convert.Tables(*(t[ix].contiguous() for t in tables))
+        args = (st[ix].contiguous(), stream[ix].contiguous(),
+                cn[ix].contiguous(), tb, N, order)
+        want = bt[ix]
+        direct = rans8_vmem._launch(*args, True)
+        bis = rans8_vmem.rans8_dec(*args, threads=32)
+        if not (torch.equal(direct, want) and torch.equal(bis, want)):
+            fail(f"direct sweep: a route did not decode B={B}")
+        del direct, bis, want
+        res[f"B={B}"] = {
+            "rule": dec8_key(B, A, order),
+            "direct_ms": cuda_ms(lambda: rans8_vmem._launch(*args, True),
+                                 reps=3),
+            "bisection_ms": cuda_ms(lambda: rans8_vmem.rans8_dec(
+                *args, threads=32), reps=3)}
+        del args, tb
+    return res
 
 
 def same_bytes(got, want) -> bool:
@@ -647,7 +843,7 @@ def phase_kernels(quick: bool) -> int:
                         f"4x8 wide B={B} N=4096 nsym={nsym} order={order}",
                         garbage=True, max_a=256)
             n += 1
-    return n + check_one_symbol_rows8()
+    return n + check_one_symbol_rows8() + check_direct_grid(quick)
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +1090,14 @@ def run_main_path(codec, name, blocks, order, sample):
     # the 4x16 order-1 device-table route counts its bigrams on the card
     need = codec.kernels + (TABLES_O1 if codec is R4X16 and order == 1
                             and routes["device"] else ())
+    if codec is R4X8:
+        # the 4x8 decoder counts under the key of the route its group took
+        # (direct_route of the group's B and alphabet bucket): one of the
+        # two, and nothing under the other
+        used = [k for k in DEC8 if launches[k]]
+        if len(used) != 1:
+            fail(f"{name}: rans8_dec launched on routes {used}")
+        need = ("rans8_enc", used[0])
     for k, v in launches.items():
         if k in need and v < 1:
             fail(f"{name}: kernel {k} was not launched on the main path")
@@ -1569,22 +1773,39 @@ def kernel_times8(blocks, order, launches):
     pl_dec = once(lambda: plain.update(dec=rans8_vmem._rans8_dec_plain(
         st, stream, cn, tables, N, order)))
     err_dec = max(max_abs_diff(out, plain.pop("dec")), max_abs_diff(out, bt))
-    nq = B * 4 * rans8_vmem._dec_geometry(N, order)[1]
-    dec_bytes = (nbytes + tables.bases.numel() * 2 + B * A
-                 + B * (16 + 4) + B * N)
-    dec_ops = (16 + 3 * math.ceil(math.log2(A + 1))) * nq
+    dec_bytes, dec_ops = dec8_work(B, N, A, order, tables.bases.numel(),
+                                   nbytes)
 
     ref = "htscodecs_tpu/ops/rans8_vmem.py"
     e_enc = entry("rans8_enc", "rans8_enc.cu", f"{ref}:452", shape,
                   launches["rans4x8"], ms_enc, pl_enc, err_enc, enc_bytes,
                   enc_ops, None)
     e_enc["whole_encode_ms"] = ms_whole
-    return [
-        entry("rans8_dec", "rans8_dec.cu", f"{ref}:252", shape,
-              launches["rans4x8"], ms_dec, pl_dec, err_dec, dec_bytes,
-              dec_ops, None),
-        e_enc,
-    ]
+    e_dec = entry("rans8_dec", "rans8_dec.cu", f"{ref}:252", shape,
+                  launches["rans4x8"], ms_dec, pl_dec, err_dec, dec_bytes,
+                  dec_ops, None)
+    e_dec["route"] = dec8_key(B, A, order)
+    # the direct route at the read cell's shape, and where it stops paying
+    cell = check_direct_cell()
+    t_b, t_o = (x / r * 1e3 for x, r in zip(
+        dec8_work(16, 1510000, 8, 1, 16 * 8 * 9, cell.pop("nbytes")),
+        (HBM_BYTES_PER_S, FP32_OPS_PER_S)))
+    cell.update(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+    e_dec["cell_shape"] = cell
+    e_dec["direct_sweep"] = [direct_sweep(), direct_sweep(8, 1,
+                                                          DIRECT_SWEEP_B8),
+                             direct_sweep(5, 0, DIRECT_SWEEP_B0)]
+    return [e_dec, e_enc]
+
+
+def dec8_work(B, N, A, order, table_numel, nbytes):
+    """(bytes, operations) of the 4x8 decode: the stream, rows, alphabets,
+    states and counts in, the bytes out; per symbol the step, its second
+    byte test and a bisection of the context's row."""
+    nq = B * 4 * rans8_vmem._dec_geometry(N, order)[1]
+    return (nbytes + table_numel * 2 + B * A + B * (16 + 4) + B * N,
+            (16 + 3 * math.ceil(math.log2(A + 1))) * nq)
 
 
 def pallas_group(blocks, group, alpha_d, packed_d):
@@ -2112,6 +2333,19 @@ def ab_run(parent: str, B: int) -> None:
             f"{k} {res[f'{k} {name}']}"
             for k in ("arith_enc", "arith_dec", "rans8_dec")))
     del q4, wide
+    # the read cell's shape, each tree's default launch
+    bt, st, s8, cn8, tables = cell_inputs(8)
+    runs = {"parent": lambda: par_r8.rans8_dec(st, s8, cn8, tables,
+                                               bt.shape[1], 1),
+            "change": lambda: rans8_vmem.rans8_dec(st, s8, cn8, tables,
+                                                   bt.shape[1], 1)}
+    for k, fn in runs.items():
+        if not torch.equal(fn(), bt):
+            fail(f"--ab: rans8_dec of the {k} did not decode the read cell's "
+                 "blocks")
+    res["rans8_dec read cell 16 x 1510000"] = in_turns(runs, reps=3)
+    log(f"A/B rans8_dec read cell: {res['rans8_dec read cell 16 x 1510000']}")
+    del bt, st, s8, cn8, tables
     jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
     parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
     acc, f, tot, cn = convert.triples_from_reference([p[1] for p in parts],
@@ -2506,9 +2740,11 @@ def poisoned(x, gen):
     return buf[pad:pad + n].view(x.shape)
 
 
-def check_taps(label, taps, gen, stats):
+def check_taps(label, taps, gen, stats, corrupt):
     """(c): each recorded launch equals its plain version (tolerance 0)
-    and two reruns with poisoned margins around every input."""
+    and two reruns with poisoned margins around every input; a rans8_dec
+    launch also through the bisection route (at its default CTA), which
+    a batch of these sizes otherwise leaves to the direct route."""
     torch.cuda.synchronize()
     for name, args, out in taps.calls:
         want = plain_of(name, args)
@@ -2517,13 +2753,19 @@ def check_taps(label, taps, gen, stats):
             fail(f"fuzz {label}: {name} != plain (max abs err {err}) at "
                  f"B={out.shape[0]} N={out.shape[1]}")
         fn = getattr(dict(Taps.SITES)[name], name)     # the wrapper itself
-        for _ in range(2):
-            again = fn(*(poisoned(a, gen) for a in args))
+        reruns = [{}, {}]
+        if name == "rans8_dec":
+            reruns.append(dict(threads=rans8_vmem.DEC_THREADS))
+        for kw in reruns:
+            again = fn(*(poisoned(a, gen) for a in args), **kw)
             torch.cuda.synchronize()
             if not torch.equal(again, out):
-                fail(f"fuzz {label}: {name} changed with random bytes "
-                     f"around its inputs (a read past an input)")
+                fail(f"fuzz {label}: {name} {kw} changed with random bytes "
+                     f"around its inputs (a read past an input), or by "
+                     f"route")
             stats["poisoned_reruns"] += 1
+        if name == "rans8_dec" and corrupt:
+            stats["rans8_dec_bisection_with_corrupt"] += 1
         stats["kernel_vs_plain_groups"][name] += 1
 
 
@@ -2619,7 +2861,7 @@ def fuzz_call(label, decode, streams, corrupt, gen, stats):
             fail(f"fuzz {label}: {type(e).__name__} where a ValueError or "
                  f"bytes were due: {e}")
     launches = {k: v for k, v in rans_vmem.LAUNCHES.items() if v}
-    check_taps(label, taps, gen, stats)
+    check_taps(label, taps, gen, stats, corrupt)
     for k, v in launches.items():
         stats["launches"][k] += v
         if corrupt:
@@ -2702,7 +2944,8 @@ def run_fuzz_paths(scale: int = 1) -> dict:
     stats = {"rounds": 0, "batches": 0, "corrupt_members": 0, "raised": 0,
              "decoded": 0, "launches": Counter(),
              "launches_with_corrupt": Counter(),
-             "kernel_vs_plain_groups": Counter(), "poisoned_reruns": 0}
+             "kernel_vs_plain_groups": Counter(), "poisoned_reruns": 0,
+             "rans8_dec_bisection_with_corrupt": 0}
     for rnd, (B, claim_x) in enumerate(((130, 4), (64, 2))):
         B = max(B // scale, 8)
         rng = np.random.default_rng(100 + rnd)
@@ -2733,9 +2976,13 @@ def run_fuzz_paths(scale: int = 1) -> dict:
         stats["claim_2_31_r4x8"] = "refused (ValueError, as the host coder)"
     fuzz_tok3(np.random.default_rng(300), stats)
     torch.cuda.synchronize()            # no sticky error left behind
-    for k in ("rans16_dec", "rans8_dec", "arith_dec"):
+    for k in ("rans16_dec", "rans8_dec_direct", "arith_dec"):
         if stats["launches_with_corrupt"][k] < 1:
             fail(f"fuzz: {k} never ran on a batch with corrupt members")
+    if (stats["launches_with_corrupt"]["rans8_dec"]
+            + stats["rans8_dec_bisection_with_corrupt"]) < 1:
+        fail("fuzz: rans8_dec's bisection route never ran on a batch with "
+             "corrupt members")
     stats["seconds"] = time.perf_counter() - t0
     return {k: dict(v) if isinstance(v, Counter) else v
             for k, v in stats.items()}

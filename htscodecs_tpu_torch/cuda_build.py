@@ -104,6 +104,10 @@ def _declare(lib) -> None:
     lib.rans8_enc_launch.argtypes = [_vp] * 6 + [_int] * 6 + [_vp]
     lib.rans8_dec_launch.restype = _int
     lib.rans8_dec_launch.argtypes = [_vp] * 6 + [_int] * 7 + [_vp]
+    lib.rans8_dec_direct_launch.restype = _int
+    lib.rans8_dec_direct_launch.argtypes = [_vp] * 6 + [_int] * 5 + [_vp]
+    lib.rans8_dec_direct_ctas_per_sm.restype = _int
+    lib.rans8_dec_direct_ctas_per_sm.argtypes = [_int] * 2
     lib.arith_enc_launch.restype = _int
     lib.arith_enc_launch.argtypes = [_vp] * 6 + [_int] * 9 + [_vp]
     lib.arith_dec_launch.restype = _int

@@ -21,12 +21,19 @@ base[sym+1] - base[sym]`` holds as in the 4x16 tables.
     and 1, with the order-0 tail that reads the last N & 3 symbols from
     the final states without advancing them).  Bound by memory traffic
     (stream bytes + tables + states in, B*N bytes out), by the chain of
-    one step in fact: the CTA's base rows and alphabets sit in shared
-    memory when they fit (``tables_in_smem``) with a slot index per row
-    (``slot_index``; ``slot_lookup_indexed`` is the lookup through it),
-    each block's stream is staged ahead of the chain in a shared ring
-    with ``cp.async``, and CTAs of ``threads`` threads (32, 64 or 128; 4
-    per block) spread a batch over all SMs.
+    one step in fact; each block's stream is staged ahead of the chain
+    in a shared ring with ``cp.async``.  Two routes, one result:
+
+    - the bisection route: the CTA's base rows and alphabets sit in
+      shared memory when they fit (``tables_in_smem``) with a slot index
+      per row (``slot_index``; ``slot_lookup_indexed`` is the lookup
+      through it), and CTAs of ``threads`` threads (32, 64 or 128; 4 per
+      block) spread a batch of thousands of blocks over all SMs;
+    - the direct route (``direct_route``, for batches of up to a few
+      blocks an SM, e.g. a reader's 16 slices): one block a CTA and a
+      fused word per 12-bit slot of each context row in shared memory
+      (``_direct_table_plain``), so that a step resolves its slot with
+      one load and no branch.  Counted as ``"rans8_dec_direct"``.
 ``rans8_enc``  csrc/rans8_enc.cu
     replaces ``_build_enc_kernel`` / ``_enc_vmem8`` and its stitch
     sort.  Reads the raw block bytes and the packed ``base << 13 |
@@ -45,6 +52,7 @@ int32 bit patterns (``ops/convert.py``); the stream is plain uint8.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -107,6 +115,99 @@ def tables_in_smem(threads: int, A: int, order: int) -> bool:
     return rans_vmem.dec_tables_in_smem(threads, A, order, STAGE)
 
 
+# the direct route (csrc/rans8_dec.cu: rans8_dec_direct_kernel): one
+# block a CTA, one 32-bit word per 12-bit slot of each context row,
+# freq << DIRECT_F_SHIFT | symbol << DIRECT_S_SHIFT | (slot - base)
+DIRECT_STAGE = 512           # ring bytes (DSB)
+DIRECT_ROW = 1 << SHIFT      # words a context row (DROW)
+DIRECT_S_SHIFT = 12
+DIRECT_F_SHIFT = 19
+DIRECT_MAX_A = 128           # symbols the word's 7-bit field holds
+DIRECT_ROW_MAX = 4096        # the largest row entry a word holds
+SMEM_UNIT = 128              # bytes: an SM's shared memory goes out in these
+# blocks an SM may take in turns where fewer CTAs fit on it at once: a
+# direct-route round takes 27 ms at 16 x 1 510 000 (one or two CTAs an
+# SM) where the bisection route takes 116-127 ms at any B, so four
+# rounds still gain; twelve CTAs an SM at once (order 0) contend and
+# take 79 ms a round, so those get one (PERF.md, the direct route's sweep)
+DIRECT_BLOCKS_PER_SM = 4
+
+
+def _direct_smem(A: int, order: int) -> int:
+    """Shared memory of one direct-route CTA (csrc/rans8_dec.cu:
+    rans8_dec_direct_smem): the fused rows, the ring, the base rows and
+    the alphabet, each part rounded up to 16 bytes."""
+    nrows = A if order == 1 else 1
+    return (nrows * DIRECT_ROW * 4 + DIRECT_STAGE
+            + rans_vmem._part(nrows * (A + 1) * 2) + rans_vmem._part(A))
+
+
+def direct_ctas_per_sm(A: int, order: int, optin: int, per_sm: int) -> int:
+    """Direct-route CTAs that one SM holds at once, from shared memory
+    alone (its 32 registers a thread and 64 threads a CTA bind nothing
+    first): ``per_sm`` bytes an SM over the CTA's bytes plus the per-CTA
+    reserve (``per_sm - optin``), in units of SMEM_UNIT, as the CUDA
+    occupancy calculator counts them; 0 where the CTA does not fit
+    ``optin`` or the alphabet the word's symbol field."""
+    smem = _direct_smem(A, order)
+    if not 1 <= A <= DIRECT_MAX_A or smem > optin:
+        return 0
+    return per_sm // (-(-(smem + per_sm - optin) // SMEM_UNIT) * SMEM_UNIT)
+
+
+def direct_route(B: int, A: int, order: int, sms: int, optin: int,
+                 per_sm: int, threads: int = 0,
+                 global_tables: bool = False) -> bool:
+    """Whether a ``rans8_dec`` launch of these shapes takes the direct
+    route on a device of ``sms`` SMs with ``optin`` bytes of shared
+    memory a CTA may opt into and ``per_sm`` bytes an SM: the default
+    launch (``threads`` 0, tables in shared memory) of a batch that
+    leaves each SM at most DIRECT_BLOCKS_PER_SM blocks, or one wave of
+    direct-route CTAs (``direct_ctas_per_sm`` on every SM) where more fit
+    at once.  The wrapper also needs the rows packable
+    (``_rows_packable``)."""
+    cps = direct_ctas_per_sm(A, order, optin, per_sm)
+    return (not threads and not global_tables and cps > 0
+            and 1 <= B <= sms * max(cps, DIRECT_BLOCKS_PER_SM))
+
+
+def _device_limits(dev: torch.device):
+    """(SMs, opt-in shared memory a CTA, shared memory an SM) of ``dev``."""
+    p = torch.cuda.get_device_properties(dev)
+    return (p.multi_processor_count, p.shared_memory_per_block_optin,
+            p.shared_memory_per_multiprocessor)
+
+
+def _rows_packable(bases: torch.Tensor) -> bool:
+    """Whether every base row (..., A+1) is non-decreasing and within
+    [0, DIRECT_ROW_MAX]: then each slot's freq (0 to 4096) and slot -
+    base (0 to 4095) fit their fields.  Table parses of valid streams
+    give only such rows; a corrupt one may not.  Checked on the host:
+    the rows of a batch that ``direct_route`` admits take under 0.5 MB,
+    and one copy costs less than the ten small kernels of a check on
+    the card (0.7 ms a call in a traced run of the read cell)."""
+    r = bases.cpu().numpy().astype(np.int32)
+    return bool((np.diff(r, axis=-1, prepend=0) >= 0).all()
+                and (r[..., -1] <= DIRECT_ROW_MAX).all())
+
+
+def _direct_table_plain(bases: torch.Tensor):
+    """Plain version of the direct route's prologue: base rows (..., A+1)
+    -> (..., DIRECT_ROW) int64 fused words, each slot's (symbol, base,
+    freq) as ``_rans8_dec_plain``'s lookup (``_slot_lookup``) gives
+    them; None where the rows are not packable or A > DIRECT_MAX_A (the
+    launch takes the bisection route)."""
+    A = bases.shape[-1] - 1
+    if A > DIRECT_MAX_A or not _rows_packable(bases):
+        return None
+    rows = bases.reshape(-1, 1, A + 1).to(torch.int64) \
+        .expand(-1, DIRECT_ROW, A + 1)
+    m = torch.arange(DIRECT_ROW, device=bases.device).expand(rows.shape[0], -1)
+    sym, bs, f = _slot_lookup(rows, m)
+    words = f << DIRECT_F_SHIFT | sym << DIRECT_S_SHIFT | (m - bs)
+    return words.reshape(*bases.shape[:-1], DIRECT_ROW)
+
+
 def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int,
               threads: int = 0, global_tables: bool = False):
     """Decode B blocks.
@@ -118,7 +219,9 @@ def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int,
     change the result: ``threads`` per CTA (32, 64 or 128; 0 takes
     ``DEC_THREADS``), ``global_tables`` reads the tables from global
     memory even where ``tables_in_smem`` would copy them (the wide-table
-    route).  Returns (B,N) uint8.
+    route).  Either one keeps the bisection route; with neither, a batch
+    that ``direct_route`` admits and whose rows are packable takes the
+    direct route.  Returns (B,N) uint8.
     """
     B, W = stream.shape
     A = tables.alpha.shape[1]
@@ -138,18 +241,40 @@ def rans8_dec(states, stream, counts, tables: Tables, N: int, order: int,
         raise ValueError("rans8_dec: threads must be 0, 32, 64 or 128")
     if dev.type == "cpu":
         return _rans8_dec_plain(states, stream, counts, tables, N, order)
+    direct = direct_route(B, A, order, *_device_limits(dev), threads,
+                          global_tables) and _rows_packable(tables.bases)
     threads = threads or DEC_THREADS
-    smem_tables = not global_tables and tables_in_smem(threads, A, order)
+    out = _launch(states, stream, counts, tables, N, order, direct,
+                  threads, not global_tables and tables_in_smem(
+                      threads, A, order))
+    LAUNCHES["rans8_dec_direct" if direct else "rans8_dec"] += 1
+    return out
+
+
+def _launch(states, stream, counts, tables: Tables, N: int, order: int,
+            direct: bool, threads: int = DEC_THREADS,
+            smem_tables: bool = True):
+    """One launch of a ``rans8_dec`` route on CUDA inputs that
+    ``rans8_dec`` has checked: the direct route (its rows packable), or
+    the bisection route at ``threads`` with or without its tables in
+    shared memory.  Returns (B,N) uint8."""
+    B, W = stream.shape
+    A = tables.alpha.shape[1]
+    dev = stream.device
     if stream.data_ptr() % 16:
         stream = stream.clone()         # the kernel stages aligned segments
     out = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = cuda_build.get_lib().rans8_dec_launch(
-            states.data_ptr(), stream.data_ptr(), counts.data_ptr(),
+    args = (states.data_ptr(), stream.data_ptr(), counts.data_ptr(),
             tables.bases.data_ptr(), tables.alpha.data_ptr(), out.data_ptr(),
-            B, W, A, N, order, threads, int(smem_tables), _stream(stream))
+            B, W, A, N, order)
+    with torch.cuda.device(dev):
+        lib = cuda_build.get_lib()
+        if direct:
+            err = lib.rans8_dec_direct_launch(*args, _stream(stream))
+        else:
+            err = lib.rans8_dec_launch(*args, threads, int(smem_tables),
+                                       _stream(stream))
     cuda_build.check(err, "rans8_dec")
-    LAUNCHES["rans8_dec"] += 1
     return out
 
 

@@ -60,8 +60,8 @@ _M32 = 0xFFFFFFFF
 # the same table)
 LAUNCHES = {"rans16_dec": 0, "rans16_dec_packed": 0,
             "rans16_enc_packed": 0, "rans8_enc": 0, "rans8_dec": 0,
-            "arith_enc": 0, "arith_dec": 0, "rc_enc": 0,
-            "tables_o1_presence": 0, "tables_o1_count": 0}
+            "rans8_dec_direct": 0, "arith_enc": 0, "arith_dec": 0,
+            "rc_enc": 0, "tables_o1_presence": 0, "tables_o1_count": 0}
 
 
 def reset_launches() -> None:

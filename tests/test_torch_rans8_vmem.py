@@ -438,3 +438,175 @@ def test_slot_index_lookup_equals_the_bisection_for_every_slot():
         want = rans_vmem._slot_lookup(bases, m)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------------------
+# rans8_dec's direct route: the fused slot table and the rule that picks it
+
+def _slot_values(rows):
+    """Each slot's (symbol, base, freq) by ``_rans8_dec_plain``'s lookup
+    over rows (R, A+1): three (R, 4096) int64 arrays."""
+    R, A1 = rows.shape
+    m = torch.arange(rans8_vmem.DIRECT_ROW).expand(R, -1)
+    wide = rows.to(torch.int64)[:, None, :].expand(R, rans8_vmem.DIRECT_ROW,
+                                                   A1)
+    return [t.numpy() for t in rans_vmem._slot_lookup(wide, m)]
+
+
+def _unpacked(words):
+    """The kernel's field extraction: words (R, 4096) -> (symbol, base,
+    freq), base = slot - (slot - base)."""
+    m = torch.arange(rans8_vmem.DIRECT_ROW)
+    sym = (words >> rans8_vmem.DIRECT_S_SHIFT) & 0x7F
+    return [t.numpy() for t in (sym, m - (words & rans8_vmem.MASK),
+                                words >> rans8_vmem.DIRECT_F_SHIFT)]
+
+
+def _rows8(alpha, packed):
+    """Dense 4x8 tables -> the decoder's base rows (R, A+1) int16."""
+    bases = convert.tables8_from_reference(alpha, packed, "cpu").bases
+    return bases.reshape(-1, bases.shape[-1])
+
+
+def _divergence_rows(kind):
+    """Base rows of the tables ROADMAP lists to check first: the native
+    build's rows of 4095 slots, a stored frequency of 0 (a one-symbol row
+    of 4096), freq-0 entries (holes) and every-slot monotone rows."""
+    if kind in ("4095_o0", "4095_o1"):
+        order = int(kind[-1])
+        blocks, alpha, packed = _setup(5, 516, 6, order)
+        return _rows8(alpha, packed)
+    if kind == "stored_zero":
+        blocks = np.full((3, 97), 70, np.uint8)
+        blocks[1] = 3
+        alpha, packed = testdata.r8_tables(blocks, 1)
+        packed = np.where(packed & 0x1FFF, (packed >> 13 << 13) | 4096, 0)
+        return _rows8(alpha, packed.astype(np.int32))
+    rng = np.random.default_rng(21)
+    if kind == "freq0":
+        # each row's entries with freq 0 between, before and after the
+        # used ones, summing to 4095 or 4096
+        pk = np.zeros((24, 9), np.int32)
+        for r in range(24):
+            used = np.sort(rng.choice(9, size=int(rng.integers(1, 9)),
+                                      replace=False))
+            tot = int(rng.choice([4095, 4096]))
+            cuts = np.sort(rng.integers(1, tot, len(used) - 1))
+            fq = np.diff(np.concatenate([[0], cuts, [tot]]))
+            keep = fq > 0
+            used, fq = used[keep], fq[keep]
+            bs = np.concatenate([[0], np.cumsum(fq)[:-1]])
+            pk[r, used] = bs << 13 | fq
+        return rans8_vmem._b16_fill_rowtot(torch.from_numpy(pk)[:, None, :]) \
+            .to(torch.int16).reshape(24, -1)
+    # random monotone rows within [0, 4096], first base past slot 0
+    # included, every alphabet the word's field holds
+    rows = []
+    for A in (1, 2, 5, 14, 40, 128):
+        for _ in range(3):
+            hi = int(rng.integers(1, 4097))
+            rows.append(np.sort(rng.integers(0, hi + 1, A + 1)))
+    return [torch.from_numpy(r.astype(np.int16))[None] for r in rows]
+
+
+@pytest.mark.parametrize("kind", ["4095_o0", "4095_o1", "stored_zero",
+                                  "freq0", "monotone"])
+def test_direct_table_gives_every_slot_the_lookup_of_the_plain_version(kind):
+    """The fused word of each slot unpacks to the (symbol, base,
+    frequency) that _rans8_dec_plain's lookup gives that slot."""
+    groups = _divergence_rows(kind)
+    for rows in groups if isinstance(groups, list) else [groups]:
+        words = rans8_vmem._direct_table_plain(rows)
+        assert words is not None and words.shape == (rows.shape[0], 4096)
+        for got, want in zip(_unpacked(words), _slot_values(rows)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_direct_table_of_a_corrupt_stream_decodes_as_the_plain_version():
+    """The rows of the corrupt table of test_torch_fuzz's pinned 4x8
+    divergence either pack to the plain version's every slot or send the
+    launch to the bisection route."""
+    blocks = list(testdata.synth_quality(2, 64, seed=0))
+    from htscodecs_tpu_torch.models import batch
+    streams = batch.r4x8_compress_blocks(blocks, 1, engine="device",
+                                         device="cpu")
+    s = bytearray(streams[0])
+    s[10] = 4
+    parsed = batch._r8_parse_group([(0, bytes(s)), (1, streams[1])], 1)
+    rows = _rows8(parsed[3], parsed[4])
+    words = rans8_vmem._direct_table_plain(rows)
+    if words is not None:
+        for got, want in zip(_unpacked(words), _slot_values(rows)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("row", [[-1, 0, 4095], [0, 4097, 4097],
+                                 [0, 3000, 2000], [0, -32768, 4095],
+                                 [5, 4, 4095], [0, 100, 4095, 4094]])
+def test_direct_table_refuses_rows_the_word_cannot_hold(row):
+    """A negative entry, one past 4096 or a row that falls (int16 wraps
+    of a corrupt parse): the launch takes the bisection route."""
+    rows = torch.tensor([[0, 2000, 4095], row[:3]], dtype=torch.int16) \
+        if len(row) == 3 else torch.tensor([row], dtype=torch.int16)
+    assert not rans8_vmem._rows_packable(rows)
+    assert rans8_vmem._direct_table_plain(rows) is None
+
+
+def test_direct_table_refuses_alphabets_past_its_symbol_field():
+    ok = torch.arange(129, dtype=torch.int16)[None] * 30
+    assert rans8_vmem._rows_packable(ok)
+    assert rans8_vmem._direct_table_plain(ok[:, :129]) is not None   # A 128
+    wide = torch.arange(130, dtype=torch.int16)[None] * 30
+    assert rans8_vmem._direct_table_plain(wide) is None               # A 129
+
+
+# an H100 SXM: 132 SMs, 227 KB a CTA may opt into, 228 KB an SM
+H100 = (132, 232448, 233472)
+
+
+@pytest.mark.parametrize("B,A,order,kw,want", [
+    (16, 5, 1, {}, True),
+    (264, 5, 1, {}, True),          # two CTAs an SM at A = 5: one wave
+    (265, 5, 1, {}, True),          # up to four blocks an SM, in turns
+    (528, 5, 1, {}, True),
+    (529, 5, 1, {}, False),
+    (4096, 5, 1, {}, False),
+    (16, 8, 1, {}, True),           # the QS series' bucket: one an SM
+    (132, 8, 1, {}, True),
+    (528, 8, 1, {}, True),
+    (529, 8, 1, {}, False),
+    (1, 14, 1, {}, True),           # the widest order-1 CTA that fits
+    (1, 15, 1, {}, False),
+    (16, 5, 0, {}, True),           # order 0: one row a CTA
+    (1584, 5, 0, {}, True),         # 12 CTAs an SM: one wave
+    (1585, 5, 0, {}, False),
+    (16, 128, 0, {}, True),
+    (16, 129, 0, {}, False),        # past the word's symbol field
+    (0, 5, 1, {}, False),
+    (16, 5, 1, dict(threads=32), False),
+    (16, 5, 1, dict(threads=128), False),
+    (16, 5, 1, dict(global_tables=True), False),
+])
+def test_direct_route_rule(B, A, order, kw, want):
+    """The direct route takes default launches whose CTA fits and that
+    leave an SM at most four blocks, or one wave where more CTAs fit on
+    an SM at once; an explicit CTA size or the global-table route keeps
+    the bisection route."""
+    assert rans8_vmem.direct_route(B, A, order, *H100, **kw) is want
+
+
+def test_direct_route_cta_sizes():
+    """The shared memory the rule counts at the cell's shapes, and one
+    switch from fitting to not at each order."""
+    assert rans8_vmem._direct_smem(5, 1) == 5 * 16384 + 512 + 64 + 16
+    assert rans8_vmem._direct_smem(8, 1) == 8 * 16384 + 512 + 144 + 16
+    for order in (0, 1):
+        fits = [rans8_vmem.direct_route(1, A, order, *H100)
+                for A in range(1, 257)]
+        assert fits[0] and fits.count(True) == fits.index(False)
+    # the CUDA occupancy calculator's counts on the H100 (studies/rans8_dec)
+    per_sm = [rans8_vmem.direct_ctas_per_sm(A, 1, *H100[1:])
+              for A in range(1, 16)]
+    assert per_sm == [12, 6, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 0]
+    assert {rans8_vmem.direct_ctas_per_sm(A, 0, *H100[1:])
+            for A in (1, 2, 5, 8, 64, 128)} == {12}
