@@ -2040,7 +2040,7 @@ def arith_launch_sweep(batches):
 def rans8_tables(blocks, order):
     """The dense 4x8 tables that the batch layer builds for a main-path
     batch: numpy (alpha (B,A) u8, packed (B,A,A) or (B,A) i32)."""
-    res = batch._pmap(lambda b: native.r8_build_tables_dense(b, order),
+    res = batch.pool_map(lambda b: native.r8_build_tables_dense(b, order),
                       list(blocks))
     if order:
         alpha, packed, _A = rans_v2.densify_builds((r[1], r[2]) for r in res)
@@ -2106,7 +2106,7 @@ def kernel_times_rc(jobs, launches):
     are held against each other on the first PLAIN_CUT events of each
     job; at the full shape the check is the host coder's bytes in the
     main path."""
-    parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
+    parts = batch.pool_map(lambda j: fqz._replay_job(j, 4), jobs)
     if any(p is None for p in parts):
         fail("fqz_enc_replay refused a job of the main path")
     acc, f, tot, cn = convert.triples_from_reference(
@@ -2347,7 +2347,7 @@ def ab_run(parent: str, B: int) -> None:
     log(f"A/B rans8_dec read cell: {res['rans8_dec read cell 16 x 1510000']}")
     del bt, st, s8, cn8, tables
     jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
-    parts = batch._pmap(lambda j: fqz._replay_job(j, 4), jobs)
+    parts = batch.pool_map(lambda j: fqz._replay_job(j, 4), jobs)
     acc, f, tot, cn = convert.triples_from_reference([p[1] for p in parts],
                                                      DEV)
     del parts, jobs
@@ -2393,14 +2393,14 @@ def run_stream(batches, order, depth, hdr="auto", assemble=True):
 
 
 def streams_from_tuple(res, blocks):
-    """An ``assemble=False`` result -> framed streams, as ``_collect``
-    assembles them (flagged blocks through the host coder)."""
+    """An ``assemble=False`` result -> framed streams, as the stream
+    encoder assembles them (flagged blocks through the host coder)."""
     hdrs, states, words, counts, flag, _shift = res
     st = states.cpu().numpy().view(np.uint32)
     wd = words.cpu().numpy().view(np.uint16)
     bodies = batch._join_bodies(hdrs, st, wd, counts)
     N = blocks.shape[1]
-    return [streaming._frame_plain(
+    return [batch.frame(
         1, N, rans4x16._compress_o1(blocks[b]) if flag[b] else bodies[b],
         blocks[b]) for b in range(len(bodies))]
 
@@ -2512,7 +2512,7 @@ def run_roundtrip_step(q4, streams1):
     [cuda:0, cuda:0]; the v1 oracle step at 64 x 4 KiB."""
     B, N = q4.shape
     t = time.perf_counter()
-    res = batch._pmap(native.build_tables_o1_dense, list(q4))
+    res = batch.pool_map(native.build_tables_o1_dense, list(q4))
     shifts = np.array([r[3] for r in res])
     log(f"roundtrip step: host tables of {B} blocks in "
         f"{time.perf_counter() - t:.1f} s, shifts {np.unique(shifts).tolist()}")

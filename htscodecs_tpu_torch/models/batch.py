@@ -16,7 +16,10 @@ least ``TABLES_DEVICE_MIN`` blocks of at least 32 bytes are built on
 the device (``ops/tables_v2.py``, as in the JAX package, with a
 threshold measured on the card), those of smaller groups on the host
 (native C over a thread pool);
-``TABLE_ROUTES`` counts the groups that took each route.  Decode tables
+``TABLE_ROUTES`` counts the groups that took each route.  The device
+route of a group is a launch/finish pair (``launch_bodies`` /
+``finish_bodies``), which the stream encoder and the block-sharded
+layer call too.  Decode tables
 are parsed on the host and shipped to the device as dense per-block
 tables.
 
@@ -79,10 +82,8 @@ from ..utils import varint
 # dispatch latency + staging dominate tiny batches).
 DEVICE_MIN_GROUP = 16
 # "auto" also requires this many payload bytes in a group before the
-# device path engages (export HTSCODECS_TORCH_DEVICE_MIN_BYTES to
-# retune).
-DEVICE_MIN_BYTES = int(os.environ.get(
-    "HTSCODECS_TORCH_DEVICE_MIN_BYTES", 4 << 20))
+# device path engages.
+DEVICE_MIN_BYTES = 4 << 20
 
 # Minimum group size for the on-device table builders: below it the
 # host C builder over the thread pool builds the tables.  Measured on
@@ -112,7 +113,8 @@ ENTROPY_JOBS = {"encode": {"device": 0, "host": 0},
 _POOL = ThreadPoolExecutor(max_workers=min(16, (os.cpu_count() or 4)))
 
 
-def _pmap(fn, items):
+def pool_map(fn, items):
+    """[fn(x) for x in items] over the host thread pool."""
     if len(items) <= 2:
         return [fn(x) for x in items]
     return list(_POOL.map(fn, items))
@@ -174,7 +176,7 @@ def compress_blocks(blocks, order: int, engine: str = "auto",
             bodies = (_bodies_o1(batch, dev) if order == 1
                       else _bodies_o0(batch, dev))
         for k, i in enumerate(idxs):
-            out[i] = _frame(order, n, bodies[k], batch[k])
+            out[i] = frame(order, n, bodies[k], batch[k])
 
     return out  # type: ignore[return-value]
 
@@ -365,8 +367,9 @@ def _compress_blocks_transform(arrs, order: int, engine: str, dev,
     return out  # type: ignore[return-value]
 
 
-def _frame(order_byte: int, n: int, body: bytes, data: np.ndarray) -> bytes:
-    """Wrapper framing incl. the CAT fallback (compressed >= input)."""
+def frame(order_byte: int, n: int, body: bytes, data: np.ndarray) -> bytes:
+    """Wrapper framing incl. the CAT fallback (compressed >= input;
+    reference rANS_static4x16pr.c:1231-1240, :1332-1337)."""
     head = bytearray([order_byte])
     varint.put_uint(head, n)
     if len(body) >= n:
@@ -384,23 +387,6 @@ def _join_bodies(hdrs, states, words, counts) -> list[bytes]:
     W = wd.shape[1]
     return [hdrs[b] + st[b].tobytes() + wd[b, W - counts[b]:].tobytes()
             for b in range(len(hdrs))]
-
-
-def _bodies_o0_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
-    """Order-0 entropy bodies with on-device table construction
-    (ops/tables_v2.py); None -> the caller takes the host-table route.
-    The batch goes to the device once: the table build and the encode
-    read the same tensor."""
-    jb = convert.as_tensor(batch, torch.uint8, dev)
-    r = tables_v2.build_o0_device(jb, device=dev)
-    if r is None:
-        return None
-    alpha_d, packed_d, _asz, fhdr, _A = r
-    hdrs = native.serialize_o0_batch(fhdr)
-    if hdrs is None:
-        return None
-    enc = rans_vmem.rans16_enc_packed(jb, alpha_d, packed_d, 12, 0)
-    return _join_bodies(hdrs, *convert.streams_to_host(*enc))
 
 
 def _mark(dev):
@@ -433,52 +419,143 @@ def _copy_after(event, tensors):
     return host, done
 
 
-def _o1_devtables_launch(batch: np.ndarray, dev):
-    """Queue the order-1 device-table route of a batch on ``dev``'s
-    current stream: the table build, the encode with the per-block shift
-    the table build chose, and the host copies of meta, header frequencies
-    and alphabet on a side stream, launched AFTER the encode so that the
-    host can serialise headers while the device encodes.  Returns what
-    ``_o1_devtables_finish`` takes, or None (wide alphabet or tiny
+class BodiesPending:
+    """A group that ``launch_bodies`` queued: what ``finish_bodies``
+    needs, and in ``copied`` every device tensor that its side-stream
+    copies read, held until finish has waited on their event (the
+    caching allocator would otherwise hand that memory to the next
+    allocation on the current stream while the side stream still reads
+    it).  ``hdr`` is the order-1 header transport taken ("u16" / "s12"),
+    ``hdr_nbytes`` the header-frequency bytes copied to the host and
+    ``need`` the value pairs the s12 transport needed (set by finish)."""
+
+    __slots__ = ("order", "blocks", "jb", "enc", "H_d", "fhdr0", "host",
+                 "done", "copied", "hdr", "sparse", "hdr_nbytes", "need",
+                 "reads", "encoded")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+def launch_bodies(blocks, order01: int, dev, *, hdr: str = "u16",
+                  prefix: int | None = None,
+                  reads=None) -> BodiesPending | None:
+    """Queue the device-table route of a (B, N) group of rANS 4x16
+    blocks on ``dev``'s current stream: the table build, the one encoder
+    (order 1: with the per-block shift the build chose) and, at order 1,
+    the host copies of meta, header frequencies and alphabet on a side
+    stream, queued after the build so that the host can serialise
+    headers while the device encodes.  ``blocks`` is a numpy batch or a
+    uint8 tensor already on ``dev`` (``convert.as_tensor`` passes it
+    through); the table build and the encode read the same tensor.
+
+    hdr: the order-1 header transport: "u16" (dense), "s12" (the sparse
+    12-bit form, ``tables_v2.pack_freqs_sparse12``, of which only the
+    first ``prefix`` value pairs are copied, all when None; finish
+    copies again a group that needs more) or "auto" (s12 for alphabets
+    wider than 8).  reads: a stream on which ``finish_bodies`` reads
+    the device, after waiting there for the encode (None: the current
+    stream).
+
+    Returns what ``finish_bodies`` takes, or None (wide alphabet or tiny
     blocks: the caller takes the host-table route)."""
-    jb = convert.as_tensor(batch, torch.uint8, dev)
-    r = tables_v2.build_o1_device_async(jb, device=dev)
-    if r is None:
-        return None
-    alpha_d, packed_d, fhdr_d, meta_d, H_d, _A = r
-    built = _mark(dev)
-    enc = rans_vmem.rans16_enc_packed(
-        jb, alpha_d, packed_d.reshape(len(batch), -1), meta_d[:, 1], 1)
-    host, done = _copy_after(built, (meta_d, fhdr_d, alpha_d))
-    return enc, H_d, host, done
+    jb = convert.as_tensor(blocks, torch.uint8, dev)
+    p = BodiesPending(order=order01, jb=jb, reads=reads,
+                      blocks=blocks if isinstance(blocks, np.ndarray)
+                      else None)
+    if order01 == 0:
+        r = tables_v2.build_o0_device(jb, device=dev)
+        if r is None:
+            return None
+        alpha_d, packed_d, _asz, p.fhdr0, _A = r
+        p.enc = rans_vmem.rans16_enc_packed(jb, alpha_d, packed_d, 12, 0)
+    else:
+        r = tables_v2.build_o1_device_async(jb, device=dev)
+        if r is None:
+            return None
+        alpha_d, packed_d, fhdr_d, meta_d, p.H_d, A = r
+        p.hdr = "s12" if hdr == "s12" or (
+            hdr == "auto" and A > 8 and native.get_lib() is not None) \
+            else "u16"
+        if p.hdr == "s12":
+            # packed before the encode, so that its copy runs beside it
+            bm_d, v12_d, _cnts, maxnz_d = tables_v2.pack_freqs_sparse12(
+                fhdr_d)
+            P = v12_d.shape[1] // 3
+            tp = P if prefix is None else min(prefix, P)
+            hdr_t = (bm_d, v12_d[:, :3 * tp].contiguous(),
+                     maxnz_d.reshape(1))
+            p.sparse = (v12_d, tp)
+        else:
+            hdr_t = (fhdr_d,)
+        p.hdr_nbytes = sum(t.numel() * t.element_size() for t in hdr_t)
+        built = _mark(dev)
+        p.enc = rans_vmem.rans16_enc_packed(
+            jb, alpha_d, packed_d.reshape(len(jb), -1), meta_d[:, 1], 1)
+        p.copied = (meta_d, *hdr_t, alpha_d)
+        p.host, p.done = _copy_after(built, p.copied)
+    if reads is not None:
+        p.encoded = _mark(dev)
+    return p
 
 
-def _o1_devtables_finish(batch: np.ndarray, pending) -> list[bytes] | None:
-    """Wait for ``_o1_devtables_launch``'s copies, serialise the headers
-    and join the bodies.  Blocks whose banded shift decision really
-    flips rebuild on the host, so streams stay byte-exact.  None -> the
-    caller takes the host-table route."""
-    enc, H_d, host, done = pending
-    if done is not None:
-        done.synchronize()
-    meta, fhdr, alpha_h = (t.numpy() for t in host)
-    hdrs = native.serialize_o1_dense_batch(alpha_h, meta[:, 0],
-                                           fhdr.view(np.uint16), meta[:, 1])
-    if hdrs is None:
-        return None
-    flag = tables_v2.resolve_band_flags(meta, H_d)
-    bodies = _join_bodies(hdrs, *convert.streams_to_host(*enc))
-    for b in np.flatnonzero(flag):
-        bodies[b] = rans4x16._compress_o1(batch[b])
-    return bodies
+def finish_bodies(p: BodiesPending, assemble: bool = True):
+    """Wait for ``launch_bodies``' copies, serialise the headers, resolve
+    the band flags, read the payload (``convert.streams_to_host``: its
+    tail columns only) and join the bodies (header + payload, no wrapper
+    framing).  Blocks whose banded shift decision really flips rebuild
+    on the host from the numpy batch launch was given, so streams stay
+    byte-exact.  None -> the caller takes the host route.
+
+    ``assemble=False`` (order 1) reads no payload and returns ``(hdrs,
+    states, words, counts, flag, shift)``: header bytes per block, the
+    encoder's states (B,4) int32 and words (B,4K) int16 tensors on the
+    device (block b's stream is the LAST counts[b] words of its row),
+    and numpy counts, band flags (1: the caller must code that block on
+    the host) and shifts."""
+    if p.done is not None:
+        p.done.synchronize()
+    with torch.cuda.stream(p.reads):
+        if p.encoded is not None:
+            p.reads.wait_event(p.encoded)
+        if p.order == 0:
+            hdrs = native.serialize_o0_batch(p.fhdr0)
+            if hdrs is None:
+                return None
+            return _join_bodies(hdrs, *convert.streams_to_host(*p.enc))
+        meta, *hdr_h, alpha_h = (t.numpy() for t in p.host)
+        asz, shift = meta[:, 0], meta[:, 1]
+        if p.sparse is None:
+            hdrs = native.serialize_o1_dense_batch(
+                alpha_h, asz, hdr_h[0].view(np.uint16), shift)
+        else:
+            bitmap, vals, maxnz = hdr_h
+            v12_d, tp = p.sparse
+            p.need = -(-int(maxnz[0]) // 2)
+            if p.need > tp:             # prefix too narrow: copy again
+                vals = v12_d[:, :3 * p.need].cpu().numpy()
+                p.hdr_nbytes += vals.size
+            hdrs = native.serialize_o1_sparse12_batch(
+                alpha_h, asz, bitmap, vals, shift)
+        if hdrs is None:
+            return None
+        flag = tables_v2.resolve_band_flags(meta, p.H_d)
+        if not assemble:
+            states, words, counts = p.enc
+            return hdrs, states, words, counts.cpu().numpy(), flag, shift
+        bodies = _join_bodies(hdrs, *convert.streams_to_host(*p.enc))
+        for b in np.flatnonzero(flag):
+            bodies[b] = rans4x16._compress_o1(p.blocks[b])
+        return bodies
 
 
-def _bodies_o1_devtables(batch: np.ndarray, dev) -> list[bytes] | None:
-    """Order-1 entropy bodies with on-device table construction (the
-    batch goes to the device once); None -> the caller takes the
-    host-table route."""
-    pending = _o1_devtables_launch(batch, dev)
-    return None if pending is None else _o1_devtables_finish(batch, pending)
+def _bodies_devtables(batch: np.ndarray, order01: int,
+                      dev) -> list[bytes] | None:
+    """Entropy bodies with on-device table construction, launched and
+    finished at once; None -> the caller takes the host-table route."""
+    p = launch_bodies(batch, order01, dev)
+    return None if p is None else finish_bodies(p)
 
 
 def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
@@ -488,12 +565,12 @@ def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
     if not native.available():
         return [rans4x16._compress_o0(batch[b]) for b in range(B)]
     if B >= TABLES_DEVICE_MIN and N >= 32:
-        res = _bodies_o0_devtables(batch, dev)
+        res = _bodies_devtables(batch, 0, dev)
         if res is not None:
             TABLE_ROUTES["device"] += 1
             return res
     TABLE_ROUTES["host"] += 1
-    res = _pmap(native.build_tables_o0, list(batch))
+    res = pool_map(native.build_tables_o0, list(batch))
     if any(r is None for r in res):
         return [rans4x16._compress_o0(batch[b]) for b in range(B)]
     hdrs = [r[0] for r in res]
@@ -502,7 +579,7 @@ def _bodies_o0(batch: np.ndarray, dev) -> list[bytes]:
     dense = rans_v2.densify_group_o0(freqs, starts)
     if dense is None:
         # wide alphabet: the native scalar coder takes it
-        return _pmap(rans4x16._compress_o0, list(batch))
+        return pool_map(rans4x16._compress_o0, list(batch))
     alpha, packed, _ = dense
     enc = rans_v2._enc_tensors(batch, alpha, packed, 12, 0, dev)
     return _join_bodies(hdrs, *convert.streams_to_host(*enc))
@@ -513,16 +590,16 @@ def _bodies_o1(batch: np.ndarray, dev) -> list[bytes]:
     if N < 8 or not native.available():
         return [rans4x16._compress_o1(batch[b]) for b in range(B)]
     if B >= TABLES_DEVICE_MIN and N >= 32:
-        res = _bodies_o1_devtables(batch, dev)
+        res = _bodies_devtables(batch, 1, dev)
         if res is not None:
             TABLE_ROUTES["device"] += 1
             return res
     TABLE_ROUTES["host"] += 1
-    res = _pmap(native.build_tables_o1_dense, list(batch))
+    res = pool_map(native.build_tables_o1_dense, list(batch))
     if any(r is None for r in res):
         # wide alphabet (A > 96) somewhere: such data is rare (random
         # literals usually CAT out); thread the host coder
-        return _pmap(rans4x16._compress_o1, list(batch))
+        return pool_map(rans4x16._compress_o1, list(batch))
     hdrs = [r[0] for r in res]
     # mixed 10/12-bit batches need no grouping: the shift is per block
     shifts = np.array([r[3] for r in res], np.int32)
@@ -921,7 +998,7 @@ def r4x8_compress_blocks(blocks, order: int, engine: str = "auto",
         res = None
         if not _small_group(len(idxs), n, engine) and native.available():
             batch = np.stack([arrs[i] for i in idxs])
-            res = _pmap(lambda b: native.r8_build_tables_dense(b, order),
+            res = pool_map(lambda b: native.r8_build_tables_dense(b, order),
                         list(batch))
         if res is None or any(r is None for r in res):
             # small group, no native library, or an alphabet wider than
@@ -1155,7 +1232,7 @@ def fqz_compress_blocks(jobs, engine: str = "auto",
     jobs = list(jobs)
     nbytes = sum(len(j[0]) for j in jobs) // max(len(jobs), 1)
     if engine != "host" and not _small_group(len(jobs), nbytes, engine):
-        res = fqz.compress_batch_device(jobs, device=dev, pmap=_pmap)
+        res = fqz.compress_batch_device(jobs, device=dev, pmap=pool_map)
         if res is not None:
             return res
 
@@ -1165,7 +1242,7 @@ def fqz_compress_blocks(jobs, engine: str = "auto",
         strat = rest[1] if len(rest) > 1 else 0
         return fqz.compress(data, lens, flags, strat=strat)
 
-    return _pmap(one, jobs)
+    return pool_map(one, jobs)
 
 
 def fqz_decompress_blocks(streams, engine: str = "auto") -> list[bytes]:
@@ -1174,4 +1251,4 @@ def fqz_decompress_blocks(streams, engine: str = "auto") -> list[bytes]:
     it, so there is no batched decode (the JAX package has none either)
     and the call needs no device.  ``engine`` is accepted for the JAX
     signature's sake and ignored, as there."""
-    return _pmap(fqz.decompress, [bytes(s) for s in streams])
+    return pool_map(fqz.decompress, [bytes(s) for s in streams])

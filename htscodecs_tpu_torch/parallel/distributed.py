@@ -122,41 +122,26 @@ def _pad_cols(arrs: list[np.ndarray]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # rANS 4x16 encode
 
-def _sharded_bodies_o1(batch: np.ndarray, mesh) -> list[bytes] | None:
-    """Order-1 entropy bodies (header + payload, no wrapper framing) of a
-    group whose rows split over the mesh: each part's device table build
-    and encode are queued before any part's headers are serialised.
-    Blocks whose banded shift decision really flips rebuild on the host,
-    so streams stay byte-exact.  None -> the caller's usual route (an
-    alphabet wider than 96 in some part, tiny or giant blocks, no native
-    library)."""
+def _sharded_bodies(batch: np.ndarray, order01: int,
+                    mesh) -> list[bytes] | None:
+    """Entropy bodies (header + payload, no wrapper framing) of a group
+    whose rows split over the mesh: every part's device table build and
+    encode are queued (``batch.launch_bodies``) before any part is
+    finished.  None -> the caller's usual route (an alphabet wider than
+    96 in some part, tiny or giant blocks, no native library)."""
     B, N = batch.shape
-    if N < 32 or N >= (1 << 23) or not native.available():
+    if N < (32 if order01 else 1) or N >= (1 << 23) or \
+            not native.available():
         return None
     pending = []
     for dev, a, b in _parts(B, mesh):
-        p = batchmod._o1_devtables_launch(batch[a:b], dev)
+        p = batchmod.launch_bodies(batch[a:b], order01, dev)
         if p is None:
             return None
-        pending.append((a, b, p))
+        pending.append(p)
     out: list[bytes] = []
-    for a, b, p in pending:
-        bodies = batchmod._o1_devtables_finish(batch[a:b], p)
-        if bodies is None:
-            return None
-        out += bodies
-    return out
-
-
-def _sharded_bodies_o0(batch: np.ndarray, mesh) -> list[bytes] | None:
-    """Order-0 entropy bodies of a group split over the mesh; None ->
-    the caller's usual route."""
-    B, N = batch.shape
-    if N < 1 or N >= (1 << 23) or not native.available():
-        return None
-    out: list[bytes] = []
-    for dev, a, b in _parts(B, mesh):
-        bodies = batchmod._bodies_o0_devtables(batch[a:b], dev)
+    for p in pending:
+        bodies = batchmod.finish_bodies(p)
         if bodies is None:
             return None
         out += bodies
@@ -167,8 +152,7 @@ def sharded_bodies_fn(mesh):
     """Entropy-body producer for ``models.batch.compress_blocks``'
     ``bodies_fn`` hook: every same-shape group splits over the mesh."""
     def fn(batch: np.ndarray, order01: int):
-        return (_sharded_bodies_o1(batch, mesh) if order01
-                else _sharded_bodies_o0(batch, mesh))
+        return _sharded_bodies(batch, order01, mesh)
     return fn
 
 
@@ -195,10 +179,10 @@ def compress_blocks_o1(blocks: np.ndarray, mesh=None) -> list[bytes]:
     mesh = block_mesh(mesh)
     blocks = np.ascontiguousarray(blocks, np.uint8)
     B, N = blocks.shape
-    bodies = _sharded_bodies_o1(blocks, mesh)
+    bodies = _sharded_bodies(blocks, 1, mesh)
     if bodies is None:
         return [rans4x16.compress(b, 1) for b in blocks]
-    return [batchmod._frame(1, N, body, blocks[b])
+    return [batchmod.frame(1, N, body, blocks[b])
             for b, body in enumerate(bodies)]
 
 
@@ -383,7 +367,7 @@ def tok3_encode_blocks(blocks, level: int = 9, use_arith: bool = False,
     block = newline-terminated names)."""
     from ..models import tok3
     dev = block_mesh(mesh)[0]
-    return batchmod._pmap(
+    return batchmod.pool_map(
         lambda b: tok3.encode_names(b, level, use_arith, device=dev),
         list(blocks))
 
@@ -391,8 +375,8 @@ def tok3_encode_blocks(blocks, level: int = 9, use_arith: bool = False,
 def tok3_decode_blocks(blocks, mesh=None) -> list[bytes]:
     from ..models import tok3
     dev = block_mesh(mesh)[0]
-    return batchmod._pmap(lambda s: tok3.decode_names(s, device=dev),
-                          list(blocks))
+    return batchmod.pool_map(lambda s: tok3.decode_names(s, device=dev),
+                             list(blocks))
 
 
 # ---------------------------------------------------------------------------

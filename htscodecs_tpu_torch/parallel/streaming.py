@@ -10,18 +10,18 @@ pipeline: batch k's host work runs while batch k+1's table build and
 encode are on the device.
 
 ``StreamEncoder`` keeps up to ``depth`` batches in flight.  ``submit``
-queues, on the device's current stream, the table build
-(``tables_v2.build_o1_device_async`` / ``build_o0_device``) and the one
-4x16 encoder (``rans_vmem.rans16_enc_packed``, the block's shift from
-the table build), and on a side stream the copies of meta, alphabet, header
-frequencies and (when ``assemble``) states and words into pinned host
-buffers that each in-flight slot allocates once and reuses.  It never
-waits for the device but where the table build reads its alphabet size
-back.  ``_collect`` waits on that batch's copy event only, then
-serialises the headers, replays the banded shift decisions and frames
-the streams.  Streams are byte-identical to
-``rans4x16.compress(block, order)`` for plain orders 0 and 1;
-transform-flagged orders belong to ``models.batch``.
+queues each batch through the batch layer's device-table route
+(``models.batch.launch_bodies``: on the device's current stream the
+table build and the one 4x16 encoder, on a side stream the copies of
+meta, alphabet and header frequencies into pinned host memory).  It
+never waits for the device but where the table build reads its
+alphabet size back.  Collecting a batch (``batch.finish_bodies``) waits
+on that batch's copy event only, then serialises the headers, replays
+the banded shift decisions and reads the payload's tail columns, all on
+a stream of the encoder's own, so that the reads do not queue behind
+the next batch's work; the encoder frames the streams.  Streams are
+byte-identical to ``rans4x16.compress(block, order)`` for plain orders
+0 and 1; transform-flagged orders belong to ``models.batch``.
 
 The header frequencies travel as dense u16 (``hdr="u16"``) or as the
 sparse 12-bit form (``hdr="s12"``: a presence bitmap and the row-compacted
@@ -51,42 +51,9 @@ from collections import deque
 import numpy as np
 import torch
 
-from .. import native
 from ..models import batch as batchmod
 from ..models import rans4x16
-from ..ops import convert, rans_v2, tables_v2
-from ..ops.rans_vmem import rans16_enc_packed
-from ..utils import varint
-
-
-class _Slot:
-    """The pinned host buffers of one in-flight batch, grown when a
-    batch needs more and otherwise reused."""
-
-    def __init__(self):
-        self._bufs: dict[str, torch.Tensor] = {}
-
-    def like(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        n = t.numel() * t.element_size()
-        buf = self._bufs.get(name)
-        if buf is None or buf.numel() < n:
-            buf = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
-            self._bufs[name] = buf
-        return buf[:n].view(t.dtype).view(t.shape)
-
-
-class _Pending:
-    """One submitted batch: what its collect needs, and every device
-    tensor that its queued copies read, held until their event has
-    passed (the caching allocator would otherwise hand their memory to
-    the next batch while the side stream still reads it)."""
-
-    __slots__ = ("blocks", "jb", "order", "assemble", "fhdr0", "dev_t",
-                 "host", "done", "sparse", "H_d")
-
-    def __init__(self, **kw):
-        for k in self.__slots__:
-            setattr(self, k, kw.get(k))
+from ..ops import convert, rans_v2
 
 
 class StreamEncoder:
@@ -103,16 +70,16 @@ class StreamEncoder:
             ...
 
     ``depth`` bounds the batches in flight (their device tensors and
-    pinned buffers).  ``assemble=False`` skips the copies of the
-    payload and returns, for an order-1 batch on the device route,
-    ``(hdrs, states, words, counts, flag, shift)``: header bytes per
-    block, the encoder's states (B,4) int32 and words (B,4K) int16
-    tensors on the device as it writes them (block b's stream is the
-    LAST counts[b] words of its row, ``convert.streams_to_host`` reads
-    it), and numpy counts, band flags (1: the caller must code that
-    block on the host) and shifts.  An order-0 batch, and a batch that
-    takes the host coder, comes back as assembled streams whatever
-    ``assemble`` says, as in the JAX package.
+    pinned buffers).  ``assemble=False`` skips the read of the payload
+    and returns, for an order-1 batch on the device route,
+    ``batch.finish_bodies``' ``(hdrs, states, words, counts, flag,
+    shift)``: header bytes per block, the encoder's states (B,4) int32
+    and words (B,4K) int16 tensors on the device as it writes them
+    (block b's stream is the LAST counts[b] words of its row,
+    ``convert.streams_to_host`` reads it), and numpy counts, band flags
+    (1: the caller must code that block on the host) and shifts.  An
+    order-0 batch, and a batch that takes the host coder, comes back as
+    assembled streams whatever ``assemble`` says, as in the JAX package.
     """
 
     def __init__(self, order: int = 1, depth: int = 2,
@@ -132,21 +99,14 @@ class StreamEncoder:
         self._nzpairs: int | None = None
         # header-frequency bytes copied to the host, by transport
         self.hdr_bytes = {"u16": 0, "s12": 0}
-        self._q: deque[_Pending] = deque()
+        # (pending, or None for the host coder; the batch's host bytes)
+        self._q: deque[tuple] = deque()
         self._ready_buf: list = []
-        self._cuda = self.dev.type == "cuda"
-        self._side = torch.cuda.Stream(device=self.dev) if self._cuda else None
-        # the stream of the host's own reads in _collect (the banded
-        # blocks' histograms, a wider s12 prefix, a pre-staged batch's
-        # bytes): on the current stream they would wait for the next
-        # batch's work queued there
-        self._reads = torch.cuda.Stream(device=self.dev) if self._cuda \
-            else None
-        self._slots = [_Slot() for _ in range(self.depth)] if self._cuda \
-            else []
-        self._nsub = 0
-
-    # -- device side -------------------------------------------------
+        # the stream of collect's reads of the device (the payload, the
+        # banded blocks' histograms, a wider s12 prefix): on the current
+        # stream they would wait for the next batch's work queued there
+        self._reads = (torch.cuda.Stream(device=self.dev)
+                       if self.dev.type == "cuda" else None)
 
     def submit(self, blocks) -> None:
         """Queue one batch's device work and copies.
@@ -165,162 +125,41 @@ class StreamEncoder:
             raise ValueError("submit expects a (B, N) batch")
         while len(self._q) >= self.depth:
             # bound the batches in flight; callers normally drain
-            self._ready_buf.append(self._collect(self._q.popleft()))
-        jb = convert.as_tensor(blocks, torch.uint8, self.dev)
-        host_blocks = None if staged else blocks
-        if self.order == 1:
-            self._q.append(self._submit_o1(jb, host_blocks))
+            self._ready_buf.append(self._collect(*self._q.popleft()))
+        host = None
+        if staged:
+            blocks = convert.as_tensor(blocks, torch.uint8, self.dev)
+            if self.order == 0:
+                # order 0 frames on the host whatever ``assemble`` says
+                host = blocks.cpu().numpy()
         else:
-            self._q.append(self._submit_o0(jb, host_blocks))
-        self._nsub += 1
-
-    def _host_route(self, jb, blocks) -> _Pending:
-        """A batch for the host coder: it needs the bytes on the host
-        (a pre-staged batch is copied back here)."""
-        if blocks is None:
-            blocks = jb.cpu().numpy()
-        return _Pending(blocks=blocks, order=self.order,
-                        assemble=self.assemble)
-
-    def _copies(self, after, tensors: dict, later: dict):
-        """Host copies of ``tensors`` once ``after`` (an event on the
-        current stream) has passed, and of ``later`` once everything
-        queued on the current stream by now has: on the side stream into
-        this slot's pinned buffers.  Returns (host tensors by name, done
-        event).  On the CPU the tensors themselves and None."""
-        if not self._cuda:
-            return {**tensors, **later}, None
-        slot = self._slots[self._nsub % self.depth]
-        cur = torch.cuda.current_stream(self.dev)
-        queued = torch.cuda.Event()
-        queued.record(cur)
-        host = {}
-        with torch.cuda.stream(self._side):
-            for ev, group in ((after, tensors), (queued, later)):
-                if not group:
-                    continue
-                self._side.wait_event(ev)
-                for name, t in group.items():
-                    h = slot.like(name, t)
-                    h.copy_(t, non_blocking=True)
-                    host[name] = h
-            done = torch.cuda.Event()
-            done.record(self._side)
-        return host, done
-
-    def _submit_o1(self, jb, blocks) -> _Pending:
-        st = tables_v2.build_o1_device_async(jb, device=self.dev)
-        if st is None:
+            host = blocks
+        p = batchmod.launch_bodies(blocks, self.order, self.dev,
+                                   hdr=self.hdr, prefix=self._nzpairs,
+                                   reads=self._reads)
+        if p is None and host is None:
             # wide alphabet or tiny blocks: the host coder at collect
-            return self._host_route(jb, blocks)
-        alpha_d, packed_d, fhdr_d, meta_d, H_d, A = st
-        B = jb.shape[0]
-        s12 = (self.hdr == "s12"
-               or (self.hdr == "auto" and A > 8
-                   and native.get_lib() is not None))
-        sparse = None           # (all packed values, prefix pairs copied)
-        if s12:
-            # pack before the encode so that its copy runs beside it
-            bm_d, v12_d, _cnts, maxnz_d = tables_v2.pack_freqs_sparse12(fhdr_d)
-            P = v12_d.shape[1] // 3
-            tp = P if self._nzpairs is None else min(self._nzpairs, P)
-            hdr_t = {"bitmap": bm_d, "vals": v12_d[:, :3 * tp].contiguous(),
-                     "maxnz": maxnz_d.reshape(1)}
-            sparse = (v12_d, tp)
-            self.hdr_bytes["s12"] += sum(t.numel() * t.element_size()
-                                         for t in hdr_t.values())
-        else:
-            hdr_t = {"fhdr": fhdr_d}
-            self.hdr_bytes["u16"] += fhdr_d.numel() * 2
-        built = batchmod._mark(self.dev)
-        states, words, counts = rans16_enc_packed(
-            jb, alpha_d, packed_d.reshape(B, -1), meta_d[:, 1], 1)
-        later = {"counts": counts}
-        if self.assemble:
-            later.update(states=states, words=words)
-        host, done = self._copies(
-            built, {"meta": meta_d, "alpha": alpha_d, **hdr_t}, later)
-        return _Pending(blocks=blocks, jb=jb, order=1,
-                        assemble=self.assemble, host=host, done=done,
-                        sparse=sparse, H_d=H_d,
-                        dev_t=(alpha_d, packed_d, fhdr_d, meta_d, states,
-                               words, counts, hdr_t))
+            host = blocks.cpu().numpy()
+        self._q.append((p, host))
 
-    def _submit_o0(self, jb, blocks) -> _Pending:
-        if blocks is None:
-            # order 0 frames on the host whatever ``assemble`` says
-            blocks = jb.cpu().numpy()
-        r0 = tables_v2.build_o0_device(jb, device=self.dev)
-        if r0 is None:
-            return self._host_route(jb, blocks)
-        alpha_d, packed_d, _asz, fhdr, _A = r0
-        states, words, counts = rans16_enc_packed(jb, alpha_d, packed_d, 12, 0)
-        host, done = self._copies(
-            None, {}, {"states": states, "words": words, "counts": counts})
-        return _Pending(blocks=blocks, jb=jb, order=0,
-                        assemble=self.assemble, host=host, done=done,
-                        fhdr0=fhdr, dev_t=(alpha_d, packed_d, states, words,
-                                           counts))
-
-    # -- host side ---------------------------------------------------
-
-    def _collect(self, p: _Pending):
-        if p.host is None:                      # the host coder's route
-            return [rans4x16.compress(b, p.order) for b in p.blocks]
-        if p.done is not None:
-            # the batch's copies, and so its table build and encode,
-            # have passed: what it left on the device may be read on
-            # another stream
-            p.done.synchronize()
-        if self._reads is None:
-            return self._finish(p)
-        with torch.cuda.stream(self._reads):
-            return self._finish(p)
-
-    def _finish(self, p: _Pending):
-        h = {k: t.numpy() for k, t in p.host.items()}
-        N = p.jb.shape[1]
-        if p.order == 0:
-            hdrs = native.serialize_o0_batch(p.fhdr0)
-            if hdrs is None:
-                return [rans4x16.compress(b, 0) for b in p.blocks]
-            bodies = batchmod._join_bodies(
-                hdrs, h["states"].view(np.uint32), h["words"].view(np.uint16),
-                h["counts"])
-            return [_frame_plain(0, N, body, p.blocks[k])
-                    for k, body in enumerate(bodies)]
-        meta = h["meta"].copy()
-        asz, shift = meta[:, 0], meta[:, 1]
-        flag = tables_v2.resolve_band_flags(meta, p.H_d)
-        if p.sparse is not None:
-            v12_d, tp = p.sparse
-            need = -(-int(h["maxnz"][0]) // 2)
-            vals = h["vals"]
-            if need > tp:               # prefix too narrow: copy again
-                vals = v12_d[:, :3 * need].cpu().numpy()
-                self.hdr_bytes["s12"] += vals.size
-            self._nzpairs = max(self._nzpairs or 0, -(-need * 5 // 4))
-            hdrs = native.serialize_o1_sparse12_batch(
-                h["alpha"], asz, h["bitmap"], vals, shift)
-        else:
-            hdrs = native.serialize_o1_dense_batch(
-                h["alpha"], asz, h["fhdr"].view(np.uint16), shift)
-        if hdrs is None:
-            blocks = p.blocks if p.blocks is not None else p.jb.cpu().numpy()
-            return [rans4x16.compress(b, 1) for b in blocks]
-        counts = h["counts"].copy()
-        if not p.assemble:
-            states, words = p.dev_t[4], p.dev_t[5]
-            return (hdrs, states, words, counts, flag, shift.copy())
-        bodies = batchmod._join_bodies(
-            hdrs, h["states"].view(np.uint32), h["words"].view(np.uint16),
-            counts)
-        out = []
-        for b in range(len(bodies)):
-            body = (rans4x16._compress_o1(p.blocks[b]) if flag[b]
-                    else bodies[b])
-            out.append(_frame_plain(1, N, body, p.blocks[b]))
-        return out
+    def _collect(self, p, host):
+        res = None
+        if p is not None:
+            res = batchmod.finish_bodies(
+                p, assemble=self.assemble or self.order == 0)
+            if p.hdr is not None:
+                self.hdr_bytes[p.hdr] += p.hdr_nbytes
+            if p.need is not None:
+                self._nzpairs = max(self._nzpairs or 0, -(-p.need * 5 // 4))
+            if isinstance(res, tuple):
+                return res
+        if res is None:
+            if host is None:    # a pre-staged batch the serialiser refused
+                host = p.jb.cpu().numpy()
+            return [rans4x16.compress(b, self.order) for b in host]
+        N = host.shape[1]
+        return [batchmod.frame(self.order, N, body, host[k])
+                for k, body in enumerate(res)]
 
     def drain_ready(self):
         """Collect every batch whose slot must free up (and any that
@@ -328,7 +167,7 @@ class StreamEncoder:
         out = self._ready_buf
         self._ready_buf = []
         while len(self._q) > self.depth - 1:
-            out.append(self._collect(self._q.popleft()))
+            out.append(self._collect(*self._q.popleft()))
         return out
 
     def finish(self):
@@ -336,20 +175,8 @@ class StreamEncoder:
         out = self._ready_buf
         self._ready_buf = []
         while self._q:
-            out.append(self._collect(self._q.popleft()))
+            out.append(self._collect(*self._q.popleft()))
         return out
-
-
-def _frame_plain(order_byte: int, n: int, body: bytes,
-                 data: np.ndarray) -> bytes:
-    """Plain-order wrapper framing with the CAT expansion fallback
-    (rANS_static4x16pr.c:1231-1240, :1332-1337)."""
-    head = bytearray([order_byte])
-    varint.put_uint(head, n)
-    if len(body) >= n:
-        head[0] = rans4x16.X_CAT
-        return bytes(head) + data.tobytes()
-    return bytes(head) + body
 
 
 def encode_batches(batches, order: int = 1, depth: int = 2, device="cuda"):

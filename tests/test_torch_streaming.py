@@ -9,8 +9,10 @@ import torch
 from htscodecs_tpu import native as ref_native
 from htscodecs_tpu.models import rans4x16 as ref_r4x16
 from htscodecs_tpu.parallel import streaming as ref_streaming
+from htscodecs_tpu_torch import native
+from htscodecs_tpu_torch.models import batch as port_batch
 from htscodecs_tpu_torch.ops import tables_v2
-from htscodecs_tpu_torch.parallel import streaming
+from htscodecs_tpu_torch.parallel import distributed, streaming
 
 pytestmark = pytest.mark.skipif(not ref_native.available(),
                                 reason="native host kernels unavailable")
@@ -124,7 +126,7 @@ def test_prestaged_batch_whose_serialiser_refuses(monkeypatch):
     host coder on bytes copied back from the device (the JAX encoder
     reads the missing host copy there and raises TypeError)."""
     batch = _mk_batch(8, 512, 6, 7)
-    monkeypatch.setattr(streaming.native, "serialize_o1_dense_batch",
+    monkeypatch.setattr(native, "serialize_o1_dense_batch",
                         lambda *a: None)
     enc = streaming.StreamEncoder(order=1, depth=2, assemble=False,
                                   hdr="u16", device=CPU)
@@ -195,3 +197,64 @@ def test_default_device_without_a_card_raises():
         streaming.StreamEncoder(order=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         list(streaming.encode_batches([np.zeros((2, 64), np.uint8)]))
+
+
+def _framed(res, blocks):
+    """A stream encoder's result for one batch -> framed streams (an
+    ``assemble=False`` tuple as the encoder frames a batch)."""
+    if not isinstance(res, tuple):
+        return res
+    hdrs, states, words, counts, flag, _shift = res
+    bodies = port_batch._join_bodies(hdrs, states.numpy().view(np.uint32),
+                                     words.numpy().view(np.uint16), counts)
+    N = blocks.shape[1]
+    return [ref_r4x16.compress(blocks[b], 1) if flag[b]
+            else port_batch.frame(1, N, bodies[b], blocks[b])
+            for b in range(len(bodies))]
+
+
+SEAM = ([("stream", o, hdr, asm) for o in (0, 1) for hdr in ("u16", "s12")
+         for asm in (True, False)]
+        + [("compress_blocks_o1", 1, None, None),
+           ("distributed compress_blocks", 0, None, None)])
+
+
+@pytest.mark.parametrize(
+    "caller,order,hdr,assemble", SEAM,
+    ids=["-".join(str(x) for x in c if x is not None) for c in SEAM])
+def test_every_caller_reaches_the_one_launch(caller, order, hdr, assemble,
+                                             monkeypatch):
+    """The stream encoder (every order, header transport and ``assemble``;
+    ``assemble=False`` with pre-staged tensors) and the block-sharded
+    layer go through the batch layer's one device-table launch, and give
+    ``compress_blocks``' streams."""
+    monkeypatch.setattr(port_batch, "TABLES_DEVICE_MIN", 8)
+    launches = []
+    launch = port_batch.launch_bodies
+
+    def counted(blocks, order01, dev, **kw):
+        launches.append(order01)
+        return launch(blocks, order01, dev, **kw)
+
+    monkeypatch.setattr(port_batch, "launch_bodies", counted)
+    blocks = _mk_batch(16, 1024, 24, 50 + order)
+    want = port_batch.compress_blocks(list(blocks), order, engine="device",
+                                      device=CPU)
+    assert launches == [order]
+    halves = [blocks[:8], blocks[8:]]
+    if caller == "stream":
+        enc = streaming.StreamEncoder(order=order, depth=2,
+                                      assemble=assemble, hdr=hdr, device=CPU)
+        for h in halves:
+            enc.submit(h if assemble else torch.from_numpy(h))
+        got = [s for res, h in zip(enc.finish(), halves)
+               for s in _framed(res, h)]
+        if order == 1:
+            assert {k for k, v in enc.hdr_bytes.items() if v} == {hdr}
+    elif caller == "compress_blocks_o1":
+        got = distributed.compress_blocks_o1(blocks, ["cpu", "cpu"])
+    else:
+        got = distributed.compress_blocks(list(blocks), order, ["cpu", "cpu"],
+                                          engine="device")
+    assert launches == [order] * 3
+    assert got == want

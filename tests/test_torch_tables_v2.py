@@ -11,6 +11,10 @@ JAX package and are held against the native builder after the exact
 f64 replay instead.
 """
 
+import contextlib
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -359,6 +363,66 @@ def test_tables_built_event_is_on_the_batch_device(monkeypatch):
     assert isinstance(batch._mark(dev), FakeEvent)
     assert seen == [("stream of", dev)]
     assert batch._mark(torch.device("cpu")) is None
+
+
+@pytest.mark.parametrize("hdr", ["u16", "s12"])
+def test_launch_holds_what_the_side_stream_copies_read(hdr, monkeypatch):
+    """With a side stream (``torch.cuda`` streams and events faked, the
+    CPU standing in for the card), the pending from ``launch_bodies``
+    keeps every tensor that its side-stream copies read alive until
+    ``finish_bodies`` has waited on their event; the bodies are the host
+    coder's."""
+    read = []                   # weak references to the copies' sources
+    on_side = []
+    alive_at_wait = []
+
+    class FakeEvent:
+        def record(self, stream=None):
+            pass
+
+        def synchronize(self):
+            gc.collect()
+            alive_at_wait.append([r() is not None for r in read])
+
+    class FakeStream:
+        def __init__(self, device=None):
+            pass
+
+        def wait_event(self, event):
+            pass
+
+    @contextlib.contextmanager
+    def stream(s):
+        on_side.append(isinstance(s, FakeStream))
+        try:
+            yield
+        finally:
+            on_side.pop()
+
+    real_copy, real_empty = torch.Tensor.copy_, torch.empty
+
+    def copy_(self, src, non_blocking=False):
+        if on_side and on_side[-1]:
+            read.append(weakref.ref(src))
+        return real_copy(self, src, non_blocking)
+
+    monkeypatch.setattr(batch, "_mark", lambda dev: FakeEvent())
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream", stream)
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k:
+                        real_empty(*a, **k))
+    rng = np.random.default_rng(8)
+    blocks = (rng.integers(0, 24, (8, 640)) + 33).astype(np.uint8)
+    p = batch.launch_bodies(blocks, 1, torch.device("cpu"), hdr=hdr)
+    gc.collect()
+    assert p.hdr == hdr and len(read) >= 3
+    assert all(r() is not None for r in read)
+    bodies = batch.finish_bodies(p)
+    assert alive_at_wait == [[True] * len(read)]
+    for b in range(len(blocks)):
+        assert bodies[b] == rans4x16._compress_o1(blocks[b]), b
 
 
 def test_tile_rows_bound_the_per_pass_tensors():
