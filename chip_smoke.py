@@ -17,9 +17,15 @@ What it does, in order (any failure exits non-zero):
    buckets, both orders, 10/12/mixed table precision (4x16, holes and
    empty rows included) and truncated and garbage streams; the 4x16
    decoder's entries and rans8_dec at 32, 64 and 128 threads per CTA
-   and through their global-table routes, rans8_dec's default launch
-   too, each launch checked to take the route (bisection or direct) that
-   ``rans8_vmem.direct_route`` gives it; the direct route also at every
+   and through their global-table routes, the default launches of
+   rans16_dec and rans8_dec too, each launch of either checked to take
+   the route (bisection or direct) that ``rans_vmem.direct_route`` /
+   ``rans8_vmem.direct_route`` gives it; rans16_dec's direct route also
+   at shifts 10 and 12 (a mixed batch too), alphabets up to and one past
+   the widest whose CTA fits, B from 1 to 264, every N & 3 tail,
+   truncated counts and arbitrary states, against the bisection route
+   and the plain version, with its CTAs an SM held to the CUDA
+   occupancy calculator's; rans8_dec's direct route also at every
    alphabet from 2 to the largest whose CTA fits (order 1: 14, order 0:
    128), B from 1 to 264, every N & 3 tail, truncated counts and
    arbitrary states, with its CTAs an SM held to the CUDA occupancy
@@ -63,10 +69,10 @@ What it does, in order (any failure exits non-zero):
    members the host coder accepts, where the call raised), every launch
    of rans16_dec (both entries), rans8_dec and arith_dec must equal its
    plain version on the same inputs (tolerance 0) and its reruns with
-   random bytes around every input (rans8_dec's also through its
-   bisection route, where the batch took the direct one), and each of
-   the three kernels, rans8_dec on both routes, must have run on a
-   batch with corrupt members.  A memcheck pass runs the
+   random bytes around every input (rans16_dec's and rans8_dec's also
+   through their bisection routes, where the batch took the direct
+   one), and each of the three kernels, rans16_dec and rans8_dec on both
+   routes, must have run on a batch with corrupt members.  A memcheck pass runs the
    phase at a quarter of its size under ``compute-sanitizer --tool
    memcheck`` (beside ``nvcc``) first: a missing sanitizer fails the
    run, a device it refuses is recorded (``fuzz_paths`` line;
@@ -141,7 +147,11 @@ What it does, in order (any failure exits non-zero):
    at the three descriptor groups with the most bytes of one Illumina
    name block (the ``kernels`` line's ``transform_shapes`` and
    ``tok3_shapes``), the two counting kernels at the write cell's
-   shape (256 x 1 510 000 quality bytes) and the main path's, and
+   shape (256 x 1 510 000 quality bytes) and the main path's,
+   rans16_dec at the 4x16 read cell's shape (16 x 1 510 000 quality
+   bytes, the device-table route's tables: shift 10, A = 8; both routes
+   equal to the blocks and to each other, the first 1000 steps of every
+   chain to the plain version), and
    rans8_dec at the read cell's shape (16 x 1 510 000 quality bytes,
    A = 8: both routes equal to the blocks and to each other, the first
    1000 steps of every chain to the plain version) with the direct
@@ -165,7 +175,9 @@ rans8_enc (against the parent's kernel and its whole
 rc_enc, the 4x16 encoder (against
 the parent's whole ``rans_vmem.enc_batch`` where it has one, and its
 rans16_enc_packed) and
-both 4x16 decoder entries of this checkout against those of the
+both 4x16 decoder entries (the 4x16 kernels also at the order-9 stripe
+lanes, the base-row entry also at the 4x16 read cell's shape) of this
+checkout against those of the
 checkout at DIR (the parent commit, unpacked with ``git archive``), in
 turns, on the main paths' inputs, and fails if any output differs.
 
@@ -261,9 +273,78 @@ def same_suffix(w1, w2, counts) -> bool:
     return bool(((w1 == w2) | ~live).all())
 
 
-# the 4x16 decoder's launches (threads, global_tables): the default, larger
-# CTAs, and the global-table route at the smallest CTA
-DEC16_SHAPES = ((0, False), (64, False), (128, False), (32, True))
+# the 4x16 decoder's launches (threads, global_tables): the default (the
+# base-row entry's direct route where direct_route admits the batch), the
+# bisection route at its default CTA and larger ones, and the global-table
+# route at the smallest CTA
+DEC16_SHAPES = ((0, False), (32, False), (64, False), (128, False),
+                (32, True))
+# the launch counters of the base-row entry's two routes
+DEC16 = ("rans16_dec", "rans16_dec_direct")
+
+
+def dec16_key(tables, order, threads=0, glob=False) -> str:
+    """The counter a rans16_dec launch on ``tables`` adds to: the direct
+    route where the rule admits the batch at its largest shift, every
+    shift is at least DIRECT_MIN_SHIFT and the rows are packable."""
+    B, A = tables.alpha.shape
+    sv = tables.shift.cpu()
+    direct = (int(sv.min()) >= rans_vmem.DIRECT_MIN_SHIFT
+              and rans_vmem.direct_route(
+        B, A, order, int(sv.max()), *rans_vmem._device_limits(DEV),
+        threads, glob) and rans_vmem._rows_packable(tables.bases))
+    return DEC16[direct]
+
+
+def rans16_dec_routed(label, st, wd, cn, tables, N, order, **kw):
+    """rans16_dec with launch arguments ``kw``, and a check that it took
+    the route the rule gives these inputs."""
+    want = dec16_key(tables, order, kw.get("threads", 0),
+                     kw.get("global_tables", False))
+    before = {k: rans_vmem.LAUNCHES[k] for k in DEC16}
+    out = rans_vmem.rans16_dec(st, wd, cn, tables, N, order, **kw)
+    got = [k for k in DEC16 if rans_vmem.LAUNCHES[k] != before[k]]
+    if got != [want]:
+        fail(f"rans16_dec at {label} {kw}: launched {got}, the rule gives "
+             f"{want}")
+    return out
+
+
+class Routes16:
+    """While active, every rans16_dec launch (its callers look the
+    wrapper up in rans_vmem at call time) is recorded: its inputs and the
+    counters it added to, and nothing more, so that a timed window holds
+    no host copy of its own.  On leaving, each launch is checked to have
+    taken the route the rule gives its inputs; ``keys`` then holds the
+    counters the rule gave the launches."""
+
+    def __enter__(self):
+        self.keys = set()
+        self._calls = []
+        orig = self._orig = rans_vmem.rans16_dec
+
+        def recorded(st, wd, cn, tables, N, order, **kw):
+            before = [rans_vmem.LAUNCHES[k] for k in DEC16]
+            out = orig(st, wd, cn, tables, N, order, **kw)
+            got = [k for k, n in zip(DEC16, before)
+                   if rans_vmem.LAUNCHES[k] != n]
+            self._calls.append((tables, order, kw, got))
+            return out
+        rans_vmem.rans16_dec = recorded
+        return self
+
+    def __exit__(self, *exc):
+        rans_vmem.rans16_dec = self._orig
+        if exc[0] is None:
+            for tables, order, kw, got in self._calls:
+                want = dec16_key(tables, order, kw.get("threads", 0),
+                                 kw.get("global_tables", False))
+                if got != [want]:
+                    fail(f"rans16_dec on a path {kw}: launched {got}, the "
+                         f"rule gives {want}")
+                self.keys.add(want)
+        self._calls = []
+        return False
 
 
 def check_case(blocks, sv, order, label, garbage=False) -> None:
@@ -304,8 +385,9 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
         out_p = rans_vmem._rans16_dec_plain(st, wd, cn, tables, N, order)
         pkd_p = rans_vmem._rans16_dec_packed_plain(st, wd, pk, al, svt, N, order)
         for threads, glob in DEC16_SHAPES:
-            out_k = rans_vmem.rans16_dec(st, wd, cn, tables, N, order,
-                                         threads=threads, global_tables=glob)
+            out_k = rans16_dec_routed(label + tag, st, wd, cn, tables, N,
+                                      order, threads=threads,
+                                      global_tables=glob)
             pkd_k = rans_vmem.rans16_dec_packed(st, wd, pk, al, svt, N, order,
                                                 threads=threads,
                                                 global_tables=glob)
@@ -318,6 +400,155 @@ def check_case(blocks, sv, order, label, garbage=False) -> None:
                      f"threads={threads} global_tables={glob}")
         if not tag and not (torch.equal(out_p, bt) and torch.equal(pkd_p, bt)):
             fail(f"the 4x16 decoders did not return the input at {label}")
+
+
+def tables16_at(blocks, sv, order, A):
+    """``testdata.synth_tables`` of a batch at exactly A symbols: its
+    alphabet bucket cut to A, or padded to it (the alphabet repeats its
+    last entry; the added rows and columns are holes): numpy (alpha
+    (B,A) u8, packed (B,A,A) or (B,A) i32)."""
+    alpha, packed, A0 = testdata.synth_tables(blocks, sv, order)
+    if A0 > A:
+        cut = packed[:, A:] if order == 0 else np.concatenate(
+            [packed[:, A:].ravel(), packed[:, :, A:].ravel()])
+        if cut.any():
+            fail(f"tables16_at: a block has more than A = {A} symbols")
+        return (np.ascontiguousarray(alpha[:, :A]),
+                np.ascontiguousarray(packed[:, :A, :A] if order
+                                     else packed[:, :A]))
+    B = len(blocks)
+    al = np.empty((B, A), np.uint8)
+    al[:, :A0], al[:, A0:] = alpha, alpha[:, -1:]
+    pk = np.zeros((B, A, A) if order else (B, A), np.int32)
+    if order:
+        pk[:, :A0, :A0] = packed
+    else:
+        pk[:, :A0] = packed.reshape(B, A0)
+    return al, pk
+
+
+def case16(blocks, sv, order, A):
+    """The rans16_dec inputs of a batch at A symbols and shifts ``sv``,
+    written by the one encoder: (states, words, counts, tables)."""
+    alpha, packed = tables16_at(blocks, sv, order, A)
+    B = len(blocks)
+    bt = torch.from_numpy(np.ascontiguousarray(blocks)).to(DEV)
+    al = torch.from_numpy(alpha).to(DEV)
+    pk = torch.from_numpy(packed).to(DEV)
+    svt = torch.from_numpy(np.array(np.broadcast_to(sv, (B,)),
+                                    np.int32)).to(DEV)
+    st, wd, cn = rans_vmem.rans16_enc_packed(bt, al, pk.reshape(B, -1), svt,
+                                             order)
+    return (st, convert.words_forward(wd, cn).contiguous(), cn,
+            convert.tables_from_packed(al, pk, svt))
+
+
+def check_direct16_grid(quick: bool) -> int:
+    """rans16_dec's default launch against its bisection route and the
+    plain version (tolerance 0) at shifts 10 and 12 and a mixed batch,
+    alphabets from 2 to the widest whose direct-route CTA fits and one
+    past it (that launch keeps the bisection route), B from 1 to 264,
+    every N & 3 tail, truncated counts and arbitrary states; each launch
+    must take the route the rule gives it, and the rule's CTAs an SM
+    must be the CUDA occupancy calculator's (capped at DIRECT_MAX_CTAS,
+    as the rule caps it)."""
+    lib = cuda_build.get_lib()
+    _sms, optin, per_sm = rans_vmem._device_limits(DEV)
+    # (order, shift): alphabets; "mix": shifts 10 and 12 in one batch
+    widths = {(1, 10): (2, 5, 8, 24, 55, 56), (1, 12): (2, 8, 14, 15),
+              (1, "mix"): (8,), (0, 12): (2, 40, 128, 129),
+              (0, 10): (5, 128)}
+    if quick:
+        widths = {(1, 10): (5, 56), (1, 12): (14,), (1, "mix"): (8,),
+                  (0, 12): (128, 129)}
+    Ns = (33, 514, 4099, 512)             # N & 3 = 1, 2, 3, 0
+    n = 0
+    for (order, shift), As in widths.items():
+        for A in As:
+            if shift != "mix" and A <= rans_vmem.DIRECT_MAX_A:
+                per = rans_vmem.direct_ctas_per_sm(A, order, shift, optin,
+                                                   per_sm)
+                # the calculator's count, capped as the rule caps it
+                cuda = min(max(lib.rans16_dec_direct_ctas_per_sm(
+                    A, order, shift), 0), rans_vmem.DIRECT_MAX_CTAS)
+                if per != cuda:
+                    fail(f"rans16_dec direct route at A={A} order={order} "
+                         f"shift={shift}: the rule counts {per} CTAs an SM, "
+                         f"the occupancy calculator {cuda}")
+            for k, B in enumerate((1, 5, 130, 264)):
+                N = Ns[(k + A) % 4]
+                blocks = testdata.synth_wide(B, N, max(A - 1, 1),
+                                             seed=B * 7 + A * 131 + N)
+                sv = (np.resize(np.array([10, 12], np.int32), B)
+                      if shift == "mix" else np.int32(shift))
+                st, wd, cn, tables = case16(blocks, sv, order, A)
+                bt = torch.from_numpy(blocks).to(DEV)
+                label = (f"rans16_dec B={B} N={N} A={A} order={order} "
+                         f"shift={shift}")
+                variants = [("", st, cn), (" truncated", st, cn // 2 + 1),
+                            (" garbage", garbage_states(B, N), cn)]
+                for tag, S, C in variants:
+                    out = rans16_dec_routed(label + tag, S, wd, C, tables, N,
+                                            order)
+                    bis = rans_vmem.rans16_dec(S, wd, C, tables, N, order,
+                                               threads=32)
+                    torch.cuda.synchronize()
+                    want = rans_vmem._rans16_dec_plain(S, wd, C, tables, N,
+                                                       order)
+                    if not (torch.equal(out, want) and torch.equal(bis, want)):
+                        fail(f"{label}{tag}: the default launch, the "
+                             "bisection route and the plain version differ")
+                    if not tag and not torch.equal(out, bt):
+                        fail(f"{label}: rans16_dec did not return the input")
+                    n += 1
+    return n
+
+
+def cell16_inputs(seed=2147485003):
+    """16 quality-series blocks of 1 510 000 bytes (a CRAM 3.1 reader's
+    16 slices: the benchmark's qs31-read-k16 shape) on the card, with the
+    device-table route's order-1 tables and the one encoder's streams:
+    (blocks, states, words, counts, alpha, packed (B,A,A), shift, A)."""
+    bt = qs_runs_on_card(16, 1510000, seed)
+    alpha, packed, shift, A = device_tables(bt.cpu().numpy(), 1)
+    st, wd, cn = rans_vmem.rans16_enc_packed(bt, alpha, packed, shift, 1)
+    words = convert.words_forward(wd, cn).contiguous()
+    return bt, st, words, cn, alpha, packed.view(16, A, A), shift, A
+
+
+def check_direct16_cell():
+    """rans16_dec at the 4x16 read cell's shape: the default launch must
+    take the direct route, decode the blocks, equal the bisection route
+    at its default CTA and equal the plain version on the first 1000
+    steps of every chain; returns both routes' ms."""
+    bt, st, words, cn, alpha, packed, shift, A = cell16_inputs()
+    tables = convert.tables_from_packed(alpha, packed, shift)
+    N = bt.shape[1]
+    q = N >> 2
+    if dec16_key(tables, 1) != "rans16_dec_direct":
+        fail("rans16_dec at the read cell's shape: the rule keeps the "
+             "bisection route")
+    out = rans16_dec_routed("the read cell", st, words, cn, tables, N, 1)
+    bis = rans_vmem.rans16_dec(st, words, cn, tables, N, 1, threads=32)
+    if not (torch.equal(out, bt) and torch.equal(bis, bt)):
+        fail("rans16_dec at the read cell's shape did not decode its blocks")
+    head = rans_vmem._rans16_dec_plain(st, words, cn, tables, 4000, 1)
+    for lane in range(4):
+        if not torch.equal(head[:, lane * 1000:(lane + 1) * 1000],
+                           out[:, lane * q:lane * q + 1000]):
+            fail(f"rans16_dec != plain on the first 1000 steps of state "
+                 f"{lane} at the read cell's shape")
+    shifts = sorted(set(shift.cpu().tolist()))
+    t_b, t_o = (x / r * 1e3 for x, r in zip(
+        dec16_work(16, N, A, tables.bases.numel() * 2, int(cn.sum())),
+        (HBM_BYTES_PER_S, FP32_OPS_PER_S)))
+    return {"shape": f"B=16 N={N} A={A} order=1 shift={shifts}",
+            "direct_ms": cuda_ms(lambda: rans_vmem.rans16_dec(
+                st, words, cn, tables, N, 1), reps=3),
+            "bisection_ms": cuda_ms(lambda: rans_vmem.rans16_dec(
+                st, words, cn, tables, N, 1, threads=32), reps=3),
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 # rans8_dec (threads, global_tables): the default (the direct route where
@@ -843,7 +1074,8 @@ def phase_kernels(quick: bool) -> int:
                         f"4x8 wide B={B} N=4096 nsym={nsym} order={order}",
                         garbage=True, max_a=256)
             n += 1
-    return n + check_one_symbol_rows8() + check_direct_grid(quick)
+    return (n + check_direct16_grid(quick) + check_one_symbol_rows8()
+            + check_direct_grid(quick))
 
 
 # ---------------------------------------------------------------------------
@@ -1038,6 +1270,17 @@ ARITH = Codec("arith", batch.arith_compress_blocks,
               ("arith_enc", "arith_dec"))
 
 
+def dec16_need(kernels, keys):
+    """``kernels`` with "rans16_dec" replaced by ``keys``, the counters
+    the rule gave a path's rans16_dec launches (``Routes16.keys``): the
+    path must launch the decoder, on those routes only."""
+    if "rans16_dec" not in kernels:
+        return kernels
+    if not keys:
+        fail(f"rans16_dec was not launched (kernels due: {kernels})")
+    return tuple(k for k in kernels if k != "rans16_dec") + tuple(sorted(keys))
+
+
 def reset_routes() -> None:
     for k in batch.TABLE_ROUTES:
         batch.TABLE_ROUTES[k] = 0
@@ -1059,9 +1302,10 @@ def run_main_path(codec, name, blocks, order, sample):
     streams = codec.compress(blocks, order=order)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    outs = codec.uncompress(streams)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with Routes16() as r16:
+        outs = codec.uncompress(streams)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches = dict(rans_vmem.LAUNCHES)
     routes = dict(batch.TABLE_ROUTES)
 
@@ -1090,6 +1334,10 @@ def run_main_path(codec, name, blocks, order, sample):
     # the 4x16 order-1 device-table route counts its bigrams on the card
     need = codec.kernels + (TABLES_O1 if codec is R4X16 and order == 1
                             and routes["device"] else ())
+    if codec is R4X16:
+        # the 4x16 decoder counts under the key of the route the rule gave
+        # each launch (Routes16 checked every one of them)
+        need = dec16_need(need, r16.keys)
     if codec is R4X8:
         # the 4x8 decoder counts under the key of the route its group took
         # (direct_route of the group's B and alphabet bucket): one of the
@@ -1222,9 +1470,10 @@ def run_transform_path(blocks, order, sample):
     streams = batch.compress_blocks(blocks, order=order)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    outs = batch.uncompress_blocks(streams)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with Routes16() as r16:
+        outs = batch.uncompress_blocks(streams)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     res = {"B": B, "N": N, "compress_s": t1 - t0, "uncompress_s": t2 - t1,
            "compress_MBps": mb / (t1 - t0), "uncompress_MBps": mb / (t2 - t1),
            "ratio": sum(len(s) for s in streams) / (B * N),
@@ -1238,10 +1487,11 @@ def run_transform_path(blocks, order, sample):
     for b in np.linspace(0, B - 1, min(sample, B)).astype(int):
         if streams[b] != rans4x16.compress(blocks[b], order):
             fail(f"{name}: stream {b} differs from the host coder's")
+    need = dec16_need(TRANSFORM_ORDERS[order], r16.keys)
     for k, v in res["launches"].items():
-        if k in TRANSFORM_ORDERS[order] and v < 1:
+        if k in need and v < 1:
             fail(f"{name}: kernel {k} was not launched on the path")
-        if k not in R4X16.kernels + TABLES_O1 and v:
+        if k not in R4X16.kernels + TABLES_O1 + tuple(r16.keys) and v:
             fail(f"{name}: kernel {k} is not of this path but was launched")
     log(f"main path {name}: {B} blocks round-trip, {min(sample, B)} sampled "
         "streams byte-identical to the host coder")
@@ -1364,8 +1614,11 @@ def run_tok3_paths(blocks):
                 log(f"main path {name}: {res[run]}")
             run = f"{style} level {level} decode"
             name = f"tok3 {run}"
-            outs, wall, launches, jobs = counted(tok3.decode_names, first)
-            only_kernels(name, launches, () if use_arith else TOK3_PAIR[1:])
+            with Routes16() as r16:
+                outs, wall, launches, jobs = counted(tok3.decode_names, first)
+            # the level-9 decoder may launch (on the routes the rule gave
+            # it); nothing at level 19 may
+            only_kernels(name, launches, () if use_arith else tuple(r16.keys))
             for k, (o, w) in enumerate(zip(outs, want)):
                 if o != w:
                     fail(f"{name}: block {k} did not round-trip")
@@ -1409,10 +1662,11 @@ def tok3_kernel_checks(blk, streams, enc_launches):
     parts = [tok3._parse_container(memoryview(s)) for s in streams]
     descs = [bytes(s[p2:p2 + clen]) for s, part in zip(streams, parts)
              for _i, p2, clen in part[0]]
-    outs, wall, launches, jobs = counted(
-        lambda d: batch.uncompress_blocks(d, engine="device"), [descs])
-    only_kernels("tok3 descriptor decode engine device", launches,
-                 TOK3_PAIR[1:], TOK3_PAIR[1:])
+    with Routes16() as r16:
+        outs, wall, launches, jobs = counted(
+            lambda d: batch.uncompress_blocks(d, engine="device"), [descs])
+    due = dec16_need(TOK3_PAIR[1:], r16.keys)
+    only_kernels("tok3 descriptor decode engine device", launches, due, due)
     if outs[0] != batch.uncompress_blocks(descs, engine="host"):
         fail("tok3 descriptor streams: the device decode differs from the "
              "host decode")
@@ -1425,7 +1679,7 @@ def tok3_kernel_checks(blk, streams, enc_launches):
         f"order) groups, {len(groups)} of them reach the encoder: "
         f"{[(g.shape, o) for g, o in groups]}")
     counts = {"rans16_enc_packed": enc_launches,
-              "rans16_dec": launches["rans16_dec"]}
+              "rans16_dec": sum(launches[k] for k in DEC16)}
     res = []
     for arr, o in groups[:3]:
         t = time.perf_counter()
@@ -1682,11 +1936,15 @@ def dec16_work(B, N, A, table_bytes, nwords):
 
 
 def kernel_times(blocks, order, launches):
-    """The 4x16 encoder and the decoder's base-row entry at the shapes the
-    main path gave them (the device-table route's tables, per-block
-    shifts): hold each against its plain version once more, time both
-    and compute the roofline bound from this run's inputs."""
+    """The 4x16 encoder and the decoder's base-row entry (its default
+    launch, on the route the rule gives it) at the shapes the main path
+    gave them (the device-table route's tables, per-block shifts): hold
+    each against its plain version once more, time both and compute the
+    roofline bound from this run's inputs.  ``launches["rans4x16"]``
+    counts the decoder's launches on both routes as its own."""
     B, N = blocks.shape
+    counts = dict(launches["rans4x16"])
+    counts["rans16_dec"] = sum(counts.get(k, 0) for k in DEC16)
     alpha, packed, shift, A = device_tables(blocks, order)
     bt = torch.from_numpy(blocks).to(DEV)
     shape = f"B={B} N={N} A={A} order={order}"
@@ -1715,16 +1973,16 @@ def kernel_times(blocks, order, launches):
     A2 = packed.shape[1]
     enc_b, enc_o = enc16_work(B, N, A, A2, nwords)
     dec_b, dec_o = dec16_work(B, N, A, tables.bases.numel() * 2, nwords)
+    e_dec = entry("rans16_dec", "rans16_dec.cu",
+                  "htscodecs_tpu/ops/rans_vmem.py:344", shape, counts,
+                  ms_dec, pl_dec, err_dec, dec_b, dec_o, None)
+    e_dec["route"] = dec16_key(tables, order)
     return [
-        entry("rans16_dec", "rans16_dec.cu",
-              "htscodecs_tpu/ops/rans_vmem.py:344", shape,
-              launches["rans4x16"], ms_dec, pl_dec, err_dec, dec_b, dec_o,
-              None),
+        e_dec,
         entry("rans16_enc_packed", "rans16_enc_packed.cu",
               "htscodecs_tpu/ops/rans_pallas.py:485 (and "
               "htscodecs_tpu/ops/rans_vmem.py:529, :831, :855)", shape,
-              launches["rans4x16"], ms_enc, pl_enc, err_enc, enc_b, enc_o,
-              None),
+              counts, ms_enc, pl_enc, err_enc, enc_b, enc_o, None),
     ]
 
 
@@ -2332,7 +2590,12 @@ def ab_run(parent: str, B: int) -> None:
         log(f"A/B {name} B={Bb}: " + "; ".join(
             f"{k} {res[f'{k} {name}']}"
             for k in ("arith_enc", "arith_dec", "rans8_dec")))
-    del q4, wide
+    # the 4x16 kernels at the order-9 stripe lanes (16384 x 16 KiB at
+    # --blocks 4096), the decoder's largest launches
+    lanes = stripe_lanes(q4)
+    for order in (1, 0):
+        ab_4x16(par_4x16, f"stripe lanes order {order}", lanes, order, res)
+    del q4, wide, lanes
     # the read cell's shape, each tree's default launch
     bt, st, s8, cn8, tables = cell_inputs(8)
     runs = {"parent": lambda: par_r8.rans8_dec(st, s8, cn8, tables,
@@ -2346,6 +2609,24 @@ def ab_run(parent: str, B: int) -> None:
     res["rans8_dec read cell 16 x 1510000"] = in_turns(runs, reps=3)
     log(f"A/B rans8_dec read cell: {res['rans8_dec read cell 16 x 1510000']}")
     del bt, st, s8, cn8, tables
+    # the 4x16 read cell's shape, each tree's default launch of rans16_dec
+    par_vmem, _par_pallas, par_convert = par_4x16
+    bt, st, words, cn, alpha, packed, shift, _A = cell16_inputs()
+    N16 = bt.shape[1]
+    tables = convert.tables_from_packed(alpha, packed, shift)
+    par_tables = par_convert.tables_from_packed(alpha, packed, shift)
+    runs = {"parent": lambda: par_vmem.rans16_dec(st, words, cn, par_tables,
+                                                  N16, 1),
+            "change": lambda: rans_vmem.rans16_dec(st, words, cn, tables,
+                                                   N16, 1)}
+    for k, fn in runs.items():
+        if not torch.equal(fn(), bt):
+            fail(f"--ab: rans16_dec of the {k} did not decode the 4x16 read "
+                 "cell's blocks")
+    res["rans16_dec read cell 16 x 1510000"] = in_turns(runs, reps=3)
+    log(f"A/B rans16_dec read cell: "
+        f"{res['rans16_dec read cell 16 x 1510000']}")
+    del bt, st, words, cn, tables, par_tables
     jobs = testdata.synth_fqz_jobs(max(B * 3 // 64, 2), 10000, 150, seed=42)
     parts = batch.pool_map(lambda j: fqz._replay_job(j, 4), jobs)
     acc, f, tot, cn = convert.triples_from_reference([p[1] for p in parts],
@@ -2742,9 +3023,10 @@ def poisoned(x, gen):
 
 def check_taps(label, taps, gen, stats, corrupt):
     """(c): each recorded launch equals its plain version (tolerance 0)
-    and two reruns with poisoned margins around every input; a rans8_dec
-    launch also through the bisection route (at its default CTA), which
-    a batch of these sizes otherwise leaves to the direct route."""
+    and two reruns with poisoned margins around every input; a rans16_dec
+    or rans8_dec launch also through the bisection route (at its default
+    CTA), which a batch of these sizes otherwise leaves to the direct
+    route."""
     torch.cuda.synchronize()
     for name, args, out in taps.calls:
         want = plain_of(name, args)
@@ -2756,6 +3038,8 @@ def check_taps(label, taps, gen, stats, corrupt):
         reruns = [{}, {}]
         if name == "rans8_dec":
             reruns.append(dict(threads=rans8_vmem.DEC_THREADS))
+        if name == "rans16_dec":
+            reruns.append(dict(threads=rans_vmem.DEC_THREADS))
         for kw in reruns:
             again = fn(*(poisoned(a, gen) for a in args), **kw)
             torch.cuda.synchronize()
@@ -2764,8 +3048,8 @@ def check_taps(label, taps, gen, stats, corrupt):
                      f"around its inputs (a read past an input), or by "
                      f"route")
             stats["poisoned_reruns"] += 1
-        if name == "rans8_dec" and corrupt:
-            stats["rans8_dec_bisection_with_corrupt"] += 1
+        if name in ("rans16_dec", "rans8_dec") and corrupt:
+            stats[f"{name}_bisection_with_corrupt"] += 1
         stats["kernel_vs_plain_groups"][name] += 1
 
 
@@ -2945,6 +3229,7 @@ def run_fuzz_paths(scale: int = 1) -> dict:
              "decoded": 0, "launches": Counter(),
              "launches_with_corrupt": Counter(),
              "kernel_vs_plain_groups": Counter(), "poisoned_reruns": 0,
+             "rans16_dec_bisection_with_corrupt": 0,
              "rans8_dec_bisection_with_corrupt": 0}
     for rnd, (B, claim_x) in enumerate(((130, 4), (64, 2))):
         B = max(B // scale, 8)
@@ -2976,13 +3261,14 @@ def run_fuzz_paths(scale: int = 1) -> dict:
         stats["claim_2_31_r4x8"] = "refused (ValueError, as the host coder)"
     fuzz_tok3(np.random.default_rng(300), stats)
     torch.cuda.synchronize()            # no sticky error left behind
-    for k in ("rans16_dec", "rans8_dec_direct", "arith_dec"):
+    for k in ("rans16_dec_direct", "rans8_dec_direct", "arith_dec"):
         if stats["launches_with_corrupt"][k] < 1:
             fail(f"fuzz: {k} never ran on a batch with corrupt members")
-    if (stats["launches_with_corrupt"]["rans8_dec"]
-            + stats["rans8_dec_bisection_with_corrupt"]) < 1:
-        fail("fuzz: rans8_dec's bisection route never ran on a batch with "
-             "corrupt members")
+    for k in ("rans16_dec", "rans8_dec"):
+        if (stats["launches_with_corrupt"][k]
+                + stats[f"{k}_bisection_with_corrupt"]) < 1:
+            fail(f"fuzz: {k}'s bisection route never ran on a batch with "
+                 "corrupt members")
     stats["seconds"] = time.perf_counter() - t0
     return {k: dict(v) if isinstance(v, Counter) else v
             for k, v in stats.items()}
@@ -3225,6 +3511,8 @@ def main() -> None:
                  "device")
     del names
     entries = kernel_times(q4, 1, launches)
+    # rans16_dec's direct route at the 4x16 read cell's shape
+    entries[0]["cell_shape"] = check_direct16_cell()
     entries += kernel_times_packed(q4, groups, launches["packed"], entries)
     del groups
     build_ms = table_build_ms(q4)
@@ -3245,7 +3533,7 @@ def main() -> None:
                           ("tok3_shapes", tok3_entries)):
             extra = [{k: t[k] for k in ("shape", "launches", "max_abs_err",
                                         "ms", "plain_ms", "bound_ms",
-                                        "bound_by")}
+                                        "bound_by", "route") if k in t}
                      for t in more if t["name"] == e["name"]]
             if extra:
                 e[key] = extra

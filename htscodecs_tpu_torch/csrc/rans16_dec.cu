@@ -1,5 +1,6 @@
 // rans16_dec: batched rANS 4x16 decode, order 0 and order 1, for sm_90a:
-// one kernel body, templated on its table reader, with two entry points.
+// one kernel body, templated on its table reader, with two entry points,
+// and a second route for the base-row entry (below).
 //
 // Replaces two Pallas decode kernels of the JAX package, which share one
 // contract (B blocks of N bytes from their states, word streams and
@@ -67,6 +68,46 @@
 // traffic); in fact the serial chain of one state per thread (lookup,
 // step, ballot, word) sets the time, and the design keeps global memory
 // and branches off it.
+//
+// The base-row entry has a second route (rans16_dec_direct_kernel;
+// rans16_dec_direct_launch), for batches that leave the card mostly
+// empty, on rans8_dec.cu's direct design:
+//
+//   - one rANS block a CTA, decoded by the first four lanes of its first
+//     warp alone: no other group shares its instructions, its ballot
+//     (over those four lanes) or its shared-memory banks, and a reader's
+//     16 slices run on 16 SMs where the route above puts them on two;
+//   - a fused slot table per context row in shared memory: one 32-bit
+//     word per slot of the block's own 1 << shift, freq << 19 | symbol
+//     << 12 | (slot - base), so a step is one shared load, a field
+//     extraction, one multiply-add and the renormalisation, with no loop
+//     and no branch.  The CTA's warps fill the words in the prologue by
+//     running count_le and slot_symbol (the base-row answers), the route
+//     above's own lookup, on each slot, so a slot decodes as it does
+//     there by construction: slots at or past a row's total, rows with
+//     no base <= the slot (freq = row[1]) and freq-0 entries included.
+//     The words hold every row whose entries are monotone and lie in
+//     [0, 4096] (freq up to 4096 takes 13 bits, slot - base 12), shifts
+//     up to 12 and alphabets of up to 128 symbols (7 bits); the wrapper
+//     sends any other launch the route above.  A CTA sizes its rows by
+//     the launch's largest shift and strides them by its own;
+//   - a state takes at most one 16-bit word a step, so the step has one
+//     ballot and one popcount; the lane's word is picked out of the 8
+//     stream bytes from p (loaded and shifted into two registers off the
+//     dependent path) by one byte permute, and shifted into the state by
+//     another;
+//   - the ring holds DSB = 512 bytes; a round every DSTAGE = 16 steps
+//     asks for every segment below the one DSB - 32 bytes ahead, and lane
+//     0 waits for the copies asked for DWAIT = 2 rounds before (a round
+//     reads at most 128 bytes, 9 segments past its first).  Segments
+//     past the stream's end are zero-filled copies, so a word read past
+//     a block's count is 0 with no test on the chain;
+//   - the output byte's address advances by one (order 1) or four
+//     (order 0) per step, and the order-1 tail steps (state 3 alone) and
+//     the order-0 last step (whose lanes past N store nothing) run after
+//     the main loop.
+//
+//   The rule that picks the route is in ops/rans_vmem.py (direct_route).
 //
 // State-transition arithmetic is rANS_word.h's (L = 1 << 15, 16-bit
 // renormalisation) in uint32_t.  Reads of the word stream are bounded by
@@ -433,4 +474,318 @@ extern "C" int rans16_dec_packed_launch(const void* states, const void* words,
     return dec_launch<true>(states, words, nullptr, packed, alpha, shift,
                             conv, out, B, W, A, N, order, threads,
                             smem_tables, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The direct route (base rows)
+
+#define DSB 512             // ring bytes of the direct route's block
+#define DSEGS (DSB / 16)
+#define DSTAGE 16           // steps between two rounds of copies
+#define DWAIT 2             // rounds a ring copy has to land
+#define DTHREADS 128        // threads a CTA: all fill, four decode
+// CTAs an SM that the registers must allow: 12, 40 registers a thread
+// (the order-0 kernel's own; held to 32, for the 16 CTAs that the
+// threads allow, it spilled)
+#define DMIN_CTAS 12
+#define DMAX_SHIFT 12       // the word's slot - base field
+#define DS_SHIFT 12         // word: freq << 19 | sym << 12 | (slot - base)
+#define DF_SHIFT 19
+#define DMAX_A 128          // symbols the word's 7-bit field holds
+
+namespace {
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t a)
+{
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+    return v;
+}
+
+// prmt.b32 with a selector whose nibbles are all below 8 (__byte_perm
+// masks each nibble first, an instruction on the chain)
+__device__ __forceinline__ uint32_t prmt(uint32_t x, uint32_t y, uint32_t s)
+{
+    uint32_t r;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(y), "r"(s));
+    return r;
+}
+
+// cp.async of 16 bytes to a 32-bit shared address, the bytes past n
+// zero-filled (n = 0: no byte is read)
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
+                                              uint32_t n)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+
+// A block's stream in the direct route's ring of DSB bytes: stream byte
+// pos at buf + (skew + pos) % DSB, as in Stage, but every segment is
+// copied, those past the block's nb bytes as zeros.
+struct DRing {
+    uint32_t buf;
+    const uint8_t* base;
+    int skew, nb, next;
+
+    __device__ __forceinline__ void fill(int upto)
+    {
+        for (; next < upto; ++next) {
+            const int a = next * 16;
+            const int n = min(max(skew + nb - a, 0), 16);
+            cp_async16_to(buf + (a & (DSB - 1)), n > 0 ? base + a : base,
+                          (uint32_t)n);
+        }
+    }
+};
+
+// One step of the four lanes of a block, p in stream bytes.  ALL: every
+// lane moves (the quarter steps, order 0); otherwise lane 3 alone (the
+// order-1 tail).  The previous step's byte is stored first, this step's
+// byte is left in (pend, oc) and stored only where `wr` holds.
+template <int ORDER, bool ALL>
+__device__ __forceinline__ void direct_step(
+    const DRing& rg, uint32_t tab, uint32_t al, int lane, unsigned lower,
+    int sh, uint32_t mask, uint32_t& X, uint32_t& row, int& p, bool& pv,
+    uint8_t*& pend, uint32_t& oc, uint8_t* dst, bool wr)
+{
+    // stream bytes p .. p + 7 (the next four words) in (w0, w1), from the
+    // 12 aligned ring bytes around them
+    const int r0 = rg.skew + p;
+    const int a = r0 & ~3;
+    const uint32_t wa = lds_u32(rg.buf + (a & (DSB - 1)));
+    const uint32_t wb = lds_u32(rg.buf + ((a + 4) & (DSB - 1)));
+    const uint32_t wc = lds_u32(rg.buf + ((a + 8) & (DSB - 1)));
+    const uint32_t w0 = __funnelshift_r(wa, wb, 8 * (r0 & 3));
+    const uint32_t w1 = __funnelshift_r(wb, wc, 8 * (r0 & 3));
+    // the slot, hidden from the compiler, so that its address is one
+    // shift-add
+    uint32_t m = X & mask;
+    asm volatile("" : "+r"(m));
+    const uint32_t e = lds_u32(row + (m << 2));
+    const uint32_t sym = (e >> DS_SHIFT) & (DMAX_A - 1);
+    const uint32_t Xs = (e >> DF_SHIFT) * (X >> sh) + (e & 0xFFFu);
+    const bool act = ALL || lane == 3;
+    const bool need = act && Xs < RANS_L;
+    const unsigned g = __ballot_sync(0xFu, need);
+    // the lane's word, k = rank words past p, in the low 16 bits of v:
+    // selector 0x22 k + 0x10
+    const uint32_t v = prmt(w0, w1, __popc(g & lower) * 0x22u + 0x10u);
+    // Xs << 16 | word, or Xs
+    const uint32_t Xn = prmt(Xs, v, need ? 0x1054u : 0x3210u);
+    p += 2 * __popc(g);
+    st_if(pv, pend, oc);
+    oc = (uint32_t)lds_u8(al + sym);
+    if (ALL) {
+        X = Xn;
+        if (ORDER) row = tab + (sym << (sh + 2));
+        pv = wr;
+    } else {
+        X = act ? Xn : X;
+        row = act ? tab + (sym << (sh + 2)) : row;
+        pv = act;
+    }
+    pend = dst;
+}
+
+}  // namespace
+
+// Where the ring starts: the bytes of the fused rows (nrows << shift
+// words) rounded up to 16, so that the ring's cp.async copies land on
+// 16-byte shared addresses at any shift.
+static int rans16_dec_direct_ring_at(int nrows, int shift)
+{
+    return rans16_dec_part((nrows << shift) * 4);
+}
+
+// Shared memory of one direct-route CTA: the fused rows, the ring, the
+// base rows (int16) and the alphabet, each part rounded up to 16 bytes.
+// ops/rans_vmem.py (_direct_smem) holds the same rule.
+static size_t rans16_dec_direct_smem(int nrows, int A, int shift)
+{
+    return (size_t)rans16_dec_direct_ring_at(nrows, shift) + DSB
+           + rans16_dec_part(nrows * (A + 1) * 2) + rans16_dec_part(A);
+}
+
+// ring_at: where the ring starts in every CTA, past the fused rows at the
+// launch's largest shift (rans16_dec_direct_ring_at).
+template <int ORDER>
+__global__ void __launch_bounds__(DTHREADS, DMIN_CTAS)
+rans16_dec_direct_kernel(const uint32_t* __restrict__ states,
+                         const uint16_t* __restrict__ words,
+                         const int32_t* __restrict__ counts,
+                         const int16_t* __restrict__ bases,
+                         const uint8_t* __restrict__ alpha,
+                         const int32_t* __restrict__ shift,
+                         uint8_t* __restrict__ out,
+                         int W, int A, int N, int q, int K, int ring_at)
+{
+    const int tid = opaque(threadIdx.x);
+    const size_t b = (size_t)opaque(blockIdx.x);
+    const int A1 = A + 1;
+    const int nrows = ORDER ? A : 1;
+    const int rows_per = nrows * A1;
+    const int sh = shift[b];
+    const uint32_t sb = (uint32_t)opaque((int)__cvta_generic_to_shared(s16d));
+    const int rows_at = ring_at + DSB;                          // bytes
+    const int al_at = rows_at + rans16_dec_part(rows_per * 2);
+
+    DRing rg;
+    rg.buf = sb + ring_at;
+    const uint8_t* by = reinterpret_cast<const uint8_t*>(words + b * (size_t)W);
+    rg.base = reinterpret_cast<const uint8_t*>((uintptr_t)by & ~(uintptr_t)15);
+    rg.skew = (int)((uintptr_t)by & 15u);
+    rg.nb = 2 * max(min(counts[b], W), 0);
+    rg.next = 0;
+    if (tid == 0) {             // the ring's first copies beside the fill
+        rg.fill(DSEGS);
+        cp_async_commit();
+    }
+    int16_t* srows = reinterpret_cast<int16_t*>(s16d + rows_at);
+    const int16_t* gt = bases + b * rows_per;
+    for (int j = tid; j < rows_per; j += blockDim.x)
+        srows[j] = gt[j];
+    for (int j = tid; j < A; j += blockDim.x)
+        s16d[al_at + j] = alpha[b * A + j];
+    __syncthreads();
+    // the fused words, each from the bisection route's own lookup
+    uint32_t* fused = reinterpret_cast<uint32_t*>(s16d);
+    const int slots = 1 << sh;
+    for (int j = tid; j < nrows << sh; j += blockDim.x) {
+        const int r = j >> sh;
+        const int m = j & (slots - 1);
+        const STab row{sb + (uint32_t)(rows_at + 2 * r * A1)};
+        int bs, f;
+        const int sym = slot_symbol<false>(row, count_le(row, 0, A, m), bs, f);
+        fused[j] = (uint32_t)f << DF_SHIFT | (uint32_t)sym << DS_SHIFT
+                   | (uint32_t)(m - bs);
+    }
+    if (tid == 0) cp_async_wait<0>();
+    __syncthreads();
+    if (tid >= 4) return;
+
+    const int lane = tid;
+    const unsigned lower = (1u << lane) - 1u;
+    const uint32_t mask = (uint32_t)slots - 1u;
+    const uint32_t tab = sb;
+    const uint32_t al = sb + al_at;
+    uint32_t X = states[b * 4 + lane];
+    uint32_t row = tab;
+    uint8_t* const o = out + b * (size_t)N;
+    // steps in which every lane stores its byte: order 1's quarter steps
+    // (lane l's bytes from l q on), order 0's full steps but the last
+    // (byte 4 s + l)
+    const int nall = ORDER ? q : K - 1;
+    uint8_t* dst = ORDER ? o + (size_t)lane * q : o + lane;
+    const int dstep = ORDER ? 1 : 4;
+    int p = 0;
+    bool pv = false;
+    uint8_t* pend = o;
+    uint32_t oc = 0u;
+
+    auto stage = [&]() {
+        if (lane == 0) {
+            rg.fill(((rg.skew + p) >> 4) + DSEGS - 1);
+            cp_async_commit();
+            cp_async_wait<DWAIT>();
+        }
+        __syncwarp(0xFu);
+    };
+    int s = 0;
+    for (; s + DSTAGE <= nall; s += DSTAGE) {
+        stage();
+#pragma unroll
+        for (int j = 0; j < DSTAGE; ++j) {
+            direct_step<ORDER, true>(rg, tab, al, lane, lower, sh, mask, X,
+                                     row, p, pv, pend, oc, dst, true);
+            dst += dstep;
+        }
+    }
+    if (s < nall) {
+        stage();
+        for (; s < nall; ++s) {
+            direct_step<ORDER, true>(rg, tab, al, lane, lower, sh, mask, X,
+                                     row, p, pv, pend, oc, dst, true);
+            dst += dstep;
+        }
+    }
+    if (ORDER) {
+        if (s < K) {            // the tail: state 3 alone, bytes 4 q on
+            stage();
+            dst = o + 4 * (size_t)q;
+            for (; s < K; ++s) {
+                direct_step<ORDER, false>(rg, tab, al, lane, lower, sh, mask,
+                                          X, row, p, pv, pend, oc, dst, true);
+                ++dst;
+            }
+        }
+    } else {                    // the last step: lanes past N store nothing
+        stage();
+        direct_step<ORDER, true>(rg, tab, al, lane, lower, sh, mask, X, row,
+                                 p, pv, pend, oc, dst, 4 * s + lane < N);
+    }
+    st_if(pv, pend, oc);
+    if (lane == 0) cp_async_wait<0>();
+}
+
+// The direct route over rans16_dec_launch's arguments (no `threads`,
+// `smem_tables`): one CTA of DTHREADS threads a block.  max_shift is the
+// largest of the blocks' shifts (1 to DMAX_SHIFT; the CTA's rows are
+// sized by it).  The caller keeps it to launches whose rows are
+// packable (every int16 entry in [0, 4096], each row non-decreasing)
+// and A <= DMAX_A.  Returns cudaGetLastError() (or cudaErrorInvalidValue
+// / cudaErrorMisalignedAddress for bad arguments).
+extern "C" int rans16_dec_direct_launch(const void* states, const void* words,
+                                        const void* counts, const void* bases,
+                                        const void* alpha, const void* shift,
+                                        void* out, int B, int W, int A, int N,
+                                        int order, int max_shift, void* stream)
+{
+    if (B <= 0 || N <= 0) return 0;
+    if (A < 1 || A > DMAX_A || W < 1 || max_shift < 1
+        || max_shift > DMAX_SHIFT)
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)words & 15) return (int)cudaErrorMisalignedAddress;
+    const int q = order ? (N >> 2) : ((N + 3) >> 2);
+    const int K = order ? q + (N - 4 * q) : q;
+    const int nrows = order ? A : 1;
+    const size_t smem = rans16_dec_direct_smem(nrows, A, max_shift);
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    auto kernel = order ? rans16_dec_direct_kernel<1>
+                        : rans16_dec_direct_kernel<0>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kernel<<<(unsigned)B, DTHREADS, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)states, (const uint16_t*)words,
+        (const int32_t*)counts, (const int16_t*)bases,
+        (const uint8_t*)alpha, (const int32_t*)shift, (uint8_t*)out,
+        W, A, N, q, K, rans16_dec_direct_ring_at(nrows, max_shift));
+    return (int)cudaGetLastError();
+}
+
+// CTAs of the direct route that one SM holds at once at this alphabet,
+// order and shift, by the CUDA occupancy calculator (what the wrapper's
+// rule computes from the shared memory and the threads alone);
+// negative: a CUDA error.
+extern "C" int rans16_dec_direct_ctas_per_sm(int A, int order, int shift)
+{
+    if (A < 1 || A > DMAX_A || shift < 1 || shift > DMAX_SHIFT)
+        return -(int)cudaErrorInvalidValue;
+    const size_t smem = rans16_dec_direct_smem(order ? A : 1, A, shift);
+    int n_ctas = 0;
+    auto kernel = order ? rans16_dec_direct_kernel<1>
+                        : rans16_dec_direct_kernel<0>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_ctas, kernel,
+                                                            DTHREADS, smem);
+    // a CTA that does not fit is an answer here, not an error for the
+    // next launch's cudaGetLastError() to report
+    if (err != cudaSuccess) cudaGetLastError();
+    return err != cudaSuccess ? -(int)err : n_ctas;
 }

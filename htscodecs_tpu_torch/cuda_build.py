@@ -96,6 +96,10 @@ def _build() -> Path:
 def _declare(lib) -> None:
     lib.rans16_dec_launch.restype = _int
     lib.rans16_dec_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
+    lib.rans16_dec_direct_launch.restype = _int
+    lib.rans16_dec_direct_launch.argtypes = [_vp] * 7 + [_int] * 6 + [_vp]
+    lib.rans16_dec_direct_ctas_per_sm.restype = _int
+    lib.rans16_dec_direct_ctas_per_sm.argtypes = [_int] * 3
     lib.rans16_dec_packed_launch.restype = _int
     lib.rans16_dec_packed_launch.argtypes = [_vp] * 7 + [_int] * 7 + [_vp]
     lib.rans16_enc_packed_launch.restype = _int

@@ -35,7 +35,13 @@ lie on the CPU; for CUDA tensors it launches the kernel or raises.
     64 or 128; 4 per block).  The readers differ only for a context row
     with no entry at or below the slot: freq 0 on the packed route (the
     TPU kernel's masked max of nothing), freq = row[1] on the base-row
-    route (``_slot_lookup``).
+    route (``_slot_lookup``).  The base-row entry has two routes, one
+    result: that kernel (the bisection route, counted as
+    ``"rans16_dec"``), and for batches of up to a few blocks an SM (e.g.
+    a reader's 16 slices) the direct route (``direct_route``; counted as
+    ``"rans16_dec_direct"``): one block a CTA and a fused word per slot
+    of each context row in shared memory (``_direct_table16_plain``), so
+    that a step resolves its slot with one load and no branch.
 
 Tensor conventions are those of ``ops/convert.py``: states int32 and
 words int16 hold the bits of the u32 / u16 values.
@@ -58,7 +64,7 @@ _M32 = 0xFFFFFFFF
 # range-coder engines in ops/arith_vmem.py and ops/rc_vmem.py and the
 # order-1 table build's counting kernels in ops/tables_v2.py count in
 # the same table)
-LAUNCHES = {"rans16_dec": 0, "rans16_dec_packed": 0,
+LAUNCHES = {"rans16_dec": 0, "rans16_dec_direct": 0, "rans16_dec_packed": 0,
             "rans16_enc_packed": 0, "rans8_enc": 0, "rans8_dec": 0,
             "rans8_dec_direct": 0, "arith_enc": 0, "arith_dec": 0,
             "rc_enc": 0, "tables_o1_presence": 0, "tables_o1_count": 0}
@@ -198,6 +204,136 @@ def _dec_launch_args(threads: int, global_tables: bool, A: int, order: int,
     return threads, not global_tables and dec_tables_in_smem(threads, A, order)
 
 
+# the direct route of the base-row entry (csrc/rans16_dec.cu:
+# rans16_dec_direct_kernel): one block a CTA, one 32-bit word per slot of
+# each context row, freq << DIRECT_F_SHIFT | symbol << DIRECT_S_SHIFT |
+# (slot - base)
+DIRECT_STAGE = 512           # ring bytes (DSB)
+DIRECT_S_SHIFT = 12
+DIRECT_F_SHIFT = 19
+DIRECT_MAX_A = 128           # symbols the word's 7-bit field holds
+DIRECT_MAX_SHIFT = 12        # slots the word's 12-bit slot - base field holds
+# the narrowest shift the route takes: what the format gives (order 0:
+# 12; order 1: 10 or 12), so that a launch past the rule at this shift is
+# refused before its shifts and rows are read
+DIRECT_MIN_SHIFT = 10
+DIRECT_ROW_MAX = 4096        # the largest row entry a word holds
+SMEM_UNIT = 128              # bytes: an SM's shared memory goes out in these
+# CTAs an SM at most (csrc/rans16_dec.cu: DMIN_CTAS, what the kernel's
+# registers allow)
+DIRECT_MAX_CTAS = 12
+# blocks an SM may take in turns where fewer CTAs fit on it at once: at
+# 16 x 1 510 000 bytes, order 1, a round of one CTA an SM takes 26 ms
+# where the bisection route takes 90 ms at any B up to thousands, so
+# three rounds gain and four lose (PERF.md, the direct route's sweep)
+DIRECT_BLOCKS_PER_SM = 3
+
+
+def _direct_smem(A: int, order: int, shift: int) -> int:
+    """Shared memory of one direct-route CTA (csrc/rans16_dec.cu:
+    rans16_dec_direct_smem): the fused rows at ``shift``, the ring, the
+    base rows and the alphabet, each part rounded up to 16 bytes."""
+    nrows = A if order == 1 else 1
+    return (_part((nrows << shift) * 4) + DIRECT_STAGE
+            + _part(nrows * (A + 1) * 2) + _part(A))
+
+
+def direct_ctas_per_sm(A: int, order: int, shift: int, optin: int,
+                       per_sm: int) -> int:
+    """Direct-route CTAs that one SM holds at once at the launch's largest
+    ``shift``: ``per_sm`` bytes an SM over the CTA's bytes plus the
+    per-CTA reserve (``per_sm - optin``), in units of SMEM_UNIT, as the
+    CUDA occupancy calculator counts them, and at most DIRECT_MAX_CTAS;
+    0 where the CTA does not fit ``optin``, or the alphabet or the shift
+    the word's fields."""
+    if not (1 <= A <= DIRECT_MAX_A and 1 <= shift <= DIRECT_MAX_SHIFT):
+        return 0
+    smem = _direct_smem(A, order, shift)
+    if smem > optin:
+        return 0
+    unit = -(-(smem + per_sm - optin) // SMEM_UNIT) * SMEM_UNIT
+    return min(per_sm // unit, DIRECT_MAX_CTAS)
+
+
+def direct_route(B: int, A: int, order: int, shift: int, sms: int,
+                 optin: int, per_sm: int, threads: int = 0,
+                 global_tables: bool = False) -> bool:
+    """Whether a ``rans16_dec`` launch of these shapes, ``shift`` its
+    largest, takes the direct route on a device of ``sms`` SMs with
+    ``optin`` bytes of shared memory a CTA may opt into and ``per_sm``
+    bytes an SM: the default launch (``threads`` 0, tables in shared
+    memory) of a batch that leaves each SM at most DIRECT_BLOCKS_PER_SM
+    blocks, or one wave of direct-route CTAs (``direct_ctas_per_sm`` on
+    every SM) where more fit at once, at a shift from DIRECT_MIN_SHIFT
+    up.  The wrapper also needs the rows packable (``_rows_packable``)
+    and every shift at least DIRECT_MIN_SHIFT."""
+    cps = direct_ctas_per_sm(A, order, shift, optin, per_sm)
+    return (not threads and not global_tables and cps > 0
+            and shift >= DIRECT_MIN_SHIFT
+            and 1 <= B <= sms * max(cps, DIRECT_BLOCKS_PER_SM))
+
+
+def _device_limits(dev: torch.device):
+    """(SMs, opt-in shared memory a CTA, shared memory an SM) of ``dev``
+    (``rans8_vmem._device_limits``, which imports this module)."""
+    p = torch.cuda.get_device_properties(dev)
+    return (p.multi_processor_count, p.shared_memory_per_block_optin,
+            p.shared_memory_per_multiprocessor)
+
+
+def _rows_packable(bases: torch.Tensor) -> bool:
+    """Whether every base row (..., A+1) is non-decreasing and within
+    [0, DIRECT_ROW_MAX]: then each slot's freq (0 to 4096) and slot -
+    base (0 to 4095) fit their fields (``rans8_vmem._rows_packable``).
+    Table parses of valid streams give only such rows; a corrupt one
+    may not.  Checked on a host copy, in int16: with the rows widened
+    first, the route choice took 0.48 ms of host time at a tok3
+    descriptor group's 23 x 48 x 49 entries on the card's machine."""
+    r = bases.cpu().numpy()
+    return bool((r[..., 1:] >= r[..., :-1]).all() and (r[..., 0] >= 0).all()
+                and (r[..., -1] <= DIRECT_ROW_MAX).all())
+
+
+def _direct_shift(tables: Tables, order: int, threads: int,
+                  global_tables: bool):
+    """The largest shift of a ``rans16_dec`` launch that takes the direct
+    route, or None where it keeps the bisection route.  The rule at
+    DIRECT_MIN_SHIFT (the narrowest rows it takes) admits every launch
+    that a wider shift would, so only launches that pass it copy their
+    shifts and rows to the host."""
+    B, A = tables.alpha.shape
+    lim = _device_limits(tables.alpha.device)
+    if not direct_route(B, A, order, DIRECT_MIN_SHIFT, *lim, threads,
+                        global_tables):
+        return None
+    sv = tables.shift.cpu()
+    hi = int(sv.max())
+    if (int(sv.min()) >= DIRECT_MIN_SHIFT
+            and direct_route(B, A, order, hi, *lim, threads, global_tables)
+            and _rows_packable(tables.bases)):
+        return hi
+    return None
+
+
+def _direct_table16_plain(bases: torch.Tensor, shift: int):
+    """Plain version of the direct route's prologue: base rows (..., A+1)
+    -> (..., 1 << shift) int64 fused words, each slot's (symbol, base,
+    freq) as ``_rans16_dec_plain``'s lookup (``_slot_lookup``, base-row
+    answers) gives them; None where the rows are not packable, A >
+    DIRECT_MAX_A or the shift is outside [1, DIRECT_MAX_SHIFT] (the
+    launch takes the bisection route)."""
+    A = bases.shape[-1] - 1
+    if (A > DIRECT_MAX_A or not 1 <= shift <= DIRECT_MAX_SHIFT
+            or not _rows_packable(bases)):
+        return None
+    n = 1 << shift
+    rows = bases.reshape(-1, 1, A + 1).to(torch.int64).expand(-1, n, A + 1)
+    m = torch.arange(n, device=bases.device).expand(rows.shape[0], -1)
+    sym, bs, f = _slot_lookup(rows, m)
+    words = f << DIRECT_F_SHIFT | sym << DIRECT_S_SHIFT | (m - bs)
+    return words.reshape(*bases.shape[:-1], n)
+
+
 def rans16_dec(states, words, counts, tables: Tables, N: int, order: int,
                threads: int = 0, global_tables: bool = False):
     """Decode B blocks of N bytes from base rows.
@@ -207,8 +343,10 @@ def rans16_dec(states, words, counts, tables: Tables, N: int, order: int,
     (B, A if order else 1, A+1) int16.  Launch arguments, which do not
     change the result: ``threads`` per CTA (32, 64 or 128; 0 takes
     ``DEC_THREADS``), ``global_tables`` reads the tables from global
-    memory even where ``dec_tables_in_smem`` would copy them.  Returns
-    (B,N) uint8.
+    memory even where ``dec_tables_in_smem`` would copy them.  Either one
+    keeps the bisection route; with neither, a batch that
+    ``direct_route`` admits, with packable rows and shifts from
+    DIRECT_MIN_SHIFT to DIRECT_MAX_SHIFT, takes the direct route.  Returns (B,N) uint8.
     """
     B, W = words.shape
     A = tables.alpha.shape[1]
@@ -222,20 +360,24 @@ def rans16_dec(states, words, counts, tables: Tables, N: int, order: int,
     _require(tables.shift, "shift", torch.int32, (B,), dev)
     if order not in (0, 1) or N <= 0 or W < 1:
         raise ValueError("rans16_dec: bad geometry")
-    threads, smem = _dec_launch_args(threads, global_tables, A, order,
-                                     "rans16_dec")
+    cta, smem = _dec_launch_args(threads, global_tables, A, order,
+                                 "rans16_dec")
     if dev.type == "cpu":
         return _rans16_dec_plain(states, words, counts, tables, N, order)
+    shift = _direct_shift(tables, order, threads, global_tables)
     words = _aligned(words)
     out = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = cuda_build.get_lib().rans16_dec_launch(
-            states.data_ptr(), words.data_ptr(), counts.data_ptr(),
+    args = (states.data_ptr(), words.data_ptr(), counts.data_ptr(),
             tables.bases.data_ptr(), tables.alpha.data_ptr(),
-            tables.shift.data_ptr(), out.data_ptr(),
-            B, W, A, N, order, threads, int(smem), _stream(words))
+            tables.shift.data_ptr(), out.data_ptr(), B, W, A, N, order)
+    with torch.cuda.device(dev):
+        lib = cuda_build.get_lib()
+        if shift is None:
+            err = lib.rans16_dec_launch(*args, cta, int(smem), _stream(words))
+        else:
+            err = lib.rans16_dec_direct_launch(*args, shift, _stream(words))
     cuda_build.check(err, "rans16_dec")
-    LAUNCHES["rans16_dec"] += 1
+    LAUNCHES["rans16_dec" if shift is None else "rans16_dec_direct"] += 1
     return out
 
 
